@@ -1,10 +1,10 @@
-"""cartpoleplusplus_tpu — a TPU-native vectorized 3D cart-pole RL framework.
+"""cartpoleplusplus_tpu — a vectorized 3D cart-pole RL framework in JAX.
 
 A from-scratch rebuild of the capabilities of rebcabin/cartpoleplusplus
 (PyBullet 3D cart-pole + DDPG/DQN/NAF/LRPG trainers) in idiomatic
 JAX/XLA/Pallas: batched closed-form rigid-body stepping under jit, masked
 auto-reset, device-resident lax.scan rollouts, on-device agents, and env
-batches sharded over TPU meshes via XLA collectives.
+batches sharded over GPU meshes via XLA collectives.
 """
 
 __version__ = "0.1.0"
@@ -29,7 +29,7 @@ __all__ = [
 
 def __getattr__(name):
     # Lazy subpackage imports: `import cartpoleplusplus_tpu` stays light
-    # (flax/optax only load when the agents/models/dist layers are used).
+    # (optax only loads when the agents/models/dist layers are used).
     if name in ("agents", "models", "dist"):
         import importlib
 

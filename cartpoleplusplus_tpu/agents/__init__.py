@@ -6,7 +6,7 @@ rebcabin/cartpoleplusplus — `random_action_agent.py`, `lrpg_cartpole.py`,
 owning its own train loop, replay memory and target networks (SURVEY.md
 §2a/§3.3; reference mount empty this session).
 
-TPU-native redesign: every agent is a pair of pure functions
+Redesign: every agent is a pair of pure functions
 (`init(key) -> TrainState`, `train_step(state, env_state) -> ...`) where one
 `train_step` fuses rollout (lax.scan over the sharded env batch), replay
 insertion, and gradient/target updates into a single XLA program — the

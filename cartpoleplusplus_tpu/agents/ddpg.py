@@ -4,10 +4,10 @@ Reference counterpart: `ddpg_cartpole.py` in rebcabin/cartpoleplusplus
 (`ActorNetwork`, `CriticNetwork`, per-step TF session calls, host replay,
 Polyak target updates, exploration noise — SURVEY.md §2a/§3.3; BASELINE
 config 5 is "8192 envs sharded over 2+ hosts feeding an on-device
-DDPG-style actor-learner via collectives", /root/repo/BASELINE.json:11;
+DDPG-style actor-learner via collectives", BASELINE.json:11;
 reference mount empty this session).
 
-TPU-native redesign (NOT a port of the TF-1.x graph):
+Redesign (NOT a port of the TF-1.x graph):
   * The reference interleaves, per single env-step, 4 Python<->TF-C++
     session calls and ~15 Python<->Bullet calls, fully serially (SURVEY.md
     §3.3). Here ONE jitted `train_step` runs `rollout_steps` env-steps
@@ -20,8 +20,8 @@ TPU-native redesign (NOT a port of the TF-1.x graph):
     (`ou_theta=1, ou_sigma=sigma` degenerates appropriately).
   * Targets are pytree copies updated by `models.polyak`.
   * Under `dist.make_mesh` the env/replay batch axis is sharded on 'data';
-    the learner's minibatch gradients reduce across chips via the psum XLA
-    inserts for the replicated-param/sharded-batch layout.
+    the learner's minibatch gradients reduce across devices via the psum
+    XLA inserts for the replicated-param/sharded-batch layout.
 """
 
 from __future__ import annotations
@@ -37,17 +37,16 @@ import optax
 from ..env import CartPole3D
 from ..models import ActorMLP, CriticMLP, VisualActor, VisualCritic, polyak
 from ..utils.prng import normal
-from .common import (TAG_OU_X, TAG_OU_Y, _notice_learner_fallback, as_key,
-                     gated_update_scan, gather_batches, local_batch,
-                     make_train_scan, replay_presample, resolve_fused)
+from .common import (TAG_OU_X, TAG_OU_Y, as_key, gated_update_scan,
+                     local_batch, make_train_scan, replay_presample)
 from .replay import ReplayBuffer, ReplayState
 
 
 @dataclasses.dataclass(frozen=True)
 class DDPGConfig:
-    # Defaults are the round-2 TPU sweep winner (BASELINE.md learning
-    # table): 40k per-env steps at 1024 envs reaches deterministic eval
-    # mean episode length 200/200 (pole balanced to the cap).
+    # Defaults are the tuned recipe: 40k per-env steps at 1024 envs
+    # reaches deterministic eval mean episode length 200/200 (pole
+    # balanced to the cap).
     hidden: tuple = (256, 256)
     actor_lr: float = 1e-4
     critic_lr: float = 1e-3
@@ -62,7 +61,7 @@ class DDPGConfig:
     ou_sigma_min: float = 0.02       # floor after decay
     ou_sigma_decay_env_steps: int = 20000  # linear decay horizon (0 = constant)
     warmup_env_steps: int = 16       # slots to fill before learning starts
-    dtype: str = "float32"           # network compute dtype ("bfloat16" on TPU)
+    dtype: str = "float32"           # network compute dtype (or "bfloat16")
     sample: str = "column"           # replay sampling: column (fast) | uniform
     # Which critic the actor's gradient flows through: "updated" (the
     # critic AFTER this iteration's TD step — the round-1/2 semantics)
@@ -79,38 +78,21 @@ class DDPGConfig:
     # tree ops inside the serial update chain; equivalent to a target
     # update period of K gradient steps, standard in DQN-family code).
     polyak_cadence: str = "per_update"
-    # Learner implementation: "xla" (the _update_once scan), "kernel"
-    # (the whole K-update phase as ONE Pallas kernel with params/Adam
-    # moments/targets VMEM-resident — ops/learner_kernel.py), or "auto"
-    # (kernel on a single TPU device when the config shape is covered).
-    # The kernel implements the DEFAULT semantics (actor_grad_critic=
-    # "updated", polyak per_update, f32) and consumes the same
-    # presampled minibatches, bitwise, as the XLA path.
-    learner: str = "auto"
-    learner_block: int = 512         # kernel batch-block (VMEM budget)
-    # Matmul precision INSIDE the update kernel: None = platform
-    # default; "bfloat16" = single-pass MXU matmuls (fwd+bwd+targets).
-    learner_precision: str | None = None
     # Linear learning-rate decay horizon in PER-ENV env-steps (both
     # optimizers decay to lr * lr_end_frac over the horizon, then hold).
-    # 0 = constant lr. Round-3 motivation: long pixel-DDPG runs REGRESS
-    # past the OU-noise decay horizon (40k steps eval 136.7 -> 60k steps
-    # 90.4 — BASELINE.md round-2 table): once exploration is at the
-    # floor, a constant-lr learner keeps taking full-size steps on
-    # correlated on-distribution batches and walks away from the good
-    # policy. Scheduled on the gradient-step count (env-step horizon
-    # converted via updates_per_step / rollout_steps). Covered by BOTH
-    # learners (the kernel computes the optax.linear_schedule twin from
-    # its Adam step count — ops/learner_kernel.py::_sched_lr).
+    # 0 = constant lr. Motivation: long pixel-DDPG runs regressed past
+    # the OU-noise decay horizon: once exploration is at the floor, a
+    # constant-lr learner keeps taking full-size steps on correlated
+    # on-distribution batches and walks away from the good policy.
+    # Scheduled on the gradient-step count (env-step horizon converted
+    # via updates_per_step / rollout_steps).
     lr_decay_env_steps: int = 0
     lr_end_frac: float = 0.1
     # Pixel-obs encoder: "conv" (3x3-stride-2 stack, the reference-shaped
-    # default) or "patch" (non-overlapping patch embedding — MXU-native;
-    # the measured pixel-training throughput winner, models/nets.py::
-    # PatchEncoder). Ignored for state observations.
+    # default) or "patch" (non-overlapping patch embedding,
+    # models/nets.py::PatchEncoder). Ignored for state observations.
     encoder: str = "conv"
-    # Conv-encoder channel widths (pixel obs only) — the capacity lever
-    # for the round-5 >=198 quality push; (16, 32, 32) is the
+    # Conv-encoder channel widths (pixel obs only); (16, 32, 32) is the
     # reference-shaped default.
     conv_features: tuple = (16, 32, 32)
 
@@ -181,31 +163,6 @@ class DDPG:
                     f"--<agent>.batch-size or use sample='column'")
         self.actor_tx = optax.adam(self._lr(config.actor_lr))
         self.critic_tx = optax.adam(self._lr(config.critic_lr))
-        # Resolve the learner implementation once, at construction: the
-        # kernel learner keeps its state in the kernel's flat operand
-        # layout PERMANENTLY (trees cost ~100 relayout ops per train
-        # step on the serial op stream — measured to eat the kernel's
-        # entire win), so the choice shapes init()/train_step/ckpt.
-        if config.learner == "kernel":
-            if not self.kernel_learner_ok():
-                raise ValueError("config shape not coverable by the "
-                                 "fused update kernel (see "
-                                 "DDPG.kernel_learner_ok)")
-            self.kernel_mode = True
-        elif config.learner == "auto":
-            # Kernel on TPU when the shape is covered AND the pallas_call
-            # will not be cut by the SPMD partitioner: single device, or
-            # per-shard bodies under shard_map (dist_axis) — the same
-            # placement rule as resolve_fused.
-            self.kernel_mode = (self.kernel_learner_ok()
-                                and jax.default_backend() == "tpu"
-                                and (len(jax.devices()) == 1
-                                     or self.dist_axis is not None))
-        elif config.learner == "xla":
-            self.kernel_mode = False
-        else:
-            raise ValueError(f"unknown learner {config.learner!r}")
-        _notice_learner_fallback("ddpg", config.learner, self.kernel_mode)
 
     # --- init ---------------------------------------------------------------
     def init(self, key) -> DDPGState:
@@ -230,70 +187,7 @@ class DDPG:
             rng=k_run,
             env_steps=jnp.int32(0),
         )
-        return self.state_from_tree(st) if self.kernel_mode else st
-
-    # --- kernel-mode state layout --------------------------------------------
-    #
-    # In kernel mode the 8 learner groups (params, targets, Adam moments)
-    # live as the update kernel's flat operand lists; flax trees are
-    # materialized only at the boundaries (init, checkpoint, eval,
-    # unfused rollout). state_to_tree is the CANONICAL checkpoint layout
-    # — train.py converts on save/restore so checkpoints stay
-    # interchangeable between learner modes and backends.
-
-    def state_to_tree(self, st: DDPGState) -> DDPGState:
-        """Kernel-layout state -> canonical flax-tree state (no-op for
-        tree-mode states)."""
-        if not isinstance(st.actor, (list, tuple)):
-            return st
-        from ..ops import learner_kernel as lk
-
-        h = tuple(self.cfg.hidden)
-        return st._replace(
-            actor=lk.unflatten_actor(st.actor, h),
-            critic=lk.unflatten_critic(st.critic, h),
-            actor_target=lk.unflatten_actor(st.actor_target, h),
-            critic_target=lk.unflatten_critic(st.critic_target, h),
-            actor_opt=(st.actor_opt[0]._replace(
-                mu=lk.unflatten_actor(st.actor_opt[0].mu, h),
-                nu=lk.unflatten_actor(st.actor_opt[0].nu, h)),
-            ) + tuple(st.actor_opt[1:]),
-            critic_opt=(st.critic_opt[0]._replace(
-                mu=lk.unflatten_critic(st.critic_opt[0].mu, h),
-                nu=lk.unflatten_critic(st.critic_opt[0].nu, h)),
-            ) + tuple(st.critic_opt[1:]),
-        )
-
-    def state_from_tree(self, st: DDPGState) -> DDPGState:
-        """Canonical tree state -> this agent's native layout (kernel-
-        flat when kernel_mode, else identity)."""
-        if not self.kernel_mode or isinstance(st.actor, (list, tuple)):
-            return st
-        from ..ops import learner_kernel as lk
-
-        h = tuple(self.cfg.hidden)
-        return st._replace(
-            actor=lk.flatten_actor(st.actor, h),
-            critic=lk.flatten_critic(st.critic, h),
-            actor_target=lk.flatten_actor(st.actor_target, h),
-            critic_target=lk.flatten_critic(st.critic_target, h),
-            actor_opt=(st.actor_opt[0]._replace(
-                mu=lk.flatten_actor(st.actor_opt[0].mu, h),
-                nu=lk.flatten_actor(st.actor_opt[0].nu, h)),
-            ) + tuple(st.actor_opt[1:]),
-            critic_opt=(st.critic_opt[0]._replace(
-                mu=lk.flatten_critic(st.critic_opt[0].mu, h),
-                nu=lk.flatten_critic(st.critic_opt[0].nu, h)),
-            ) + tuple(st.critic_opt[1:]),
-        )
-
-    def _actor_tree(self, actor_params):
-        """Actor params as the flax tree (unflattens kernel layout)."""
-        if isinstance(actor_params, (list, tuple)):
-            from ..ops import learner_kernel as lk
-            return lk.unflatten_actor(actor_params,
-                                      tuple(self.cfg.hidden))
-        return actor_params
+        return st
 
     @property
     def local_batch_size(self) -> int:
@@ -302,9 +196,8 @@ class DDPG:
 
     # --- acting -------------------------------------------------------------
     def act(self, actor_params, obs, noise=None):
-        """Deterministic action, plus OU exploration noise if given.
-        Accepts tree or kernel-flat actor params."""
-        a = self.actor_net.apply(self._actor_tree(actor_params), obs)
+        """Deterministic action, plus OU exploration noise if given."""
+        a = self.actor_net.apply(actor_params, obs)
         if noise is not None:
             a = jnp.clip(a + noise, -1.0, 1.0)
         return a
@@ -341,9 +234,9 @@ class DDPG:
         return -jnp.mean(self.critic_net.apply(critic, obs, a))
 
     def _sample(self, replay, key):
-        """One learner minibatch (chip-local under shard_map: the key is
+        """One learner minibatch (device-local under shard_map: the key is
         decorrelated by axis_index, and the gradient pmean is then the
-        ONLY cross-chip traffic of the whole update)."""
+        ONLY cross-device traffic of the whole update)."""
         if self.dist_axis is not None:
             key = jax.random.fold_in(key, jax.lax.axis_index(self.dist_axis))
         sample_fn = {"column": self.replay.sample_columns,
@@ -386,9 +279,7 @@ class DDPG:
         through the target nets instead of K sequential ones on the
         serial update chain. Same y values as _update_once under
         per_step semantics; the win is largest for pixel nets, where
-        each hoisted pass is a conv encoder (round-5: the conv fwd/bwd
-        block is the biggest update-phase cost after the sampling
-        fixes)."""
+        each hoisted pass is a conv encoder."""
         c = self.cfg
 
         def do(s):
@@ -441,124 +332,16 @@ class DDPG:
             return do(st)
         return jax.lax.cond(ready, do, lambda s: (s, zero), st)
 
-    def kernel_learner_ok(self) -> bool:
-        """Whether ops/learner_kernel.py covers this config: state obs
-        (pixel frames would blow VMEM), >= 2 hidden layers (the action
-        injects at layer 1), the default update semantics (the kernel
-        bakes them in), f32 nets, and a presample-able replay. Under
-        shard_map (dist_axis) the kernel composes via batch replication:
-        gradients cannot pmean inside a pallas_call, so each shard
-        all_gathers the K presampled minibatches (one collective over
-        ICI) and runs the IDENTICAL full-batch kernel redundantly —
-        params stay bitwise-replicated and the math equals the XLA
-        pmean path (mean over the union batch). That needs the global
-        batch to split evenly over shards."""
-        c = self.cfg
-        return (self.env.obs_mode != "pixels"
-                and not self.replay.quantize_obs
-                and len(c.hidden) >= 2
-                and c.updates_per_step >= 1   # a K=0 phase has no grid
-                and c.actor_grad_critic in ("updated", "pre")
-                and c.polyak_cadence == "per_update"
-                and c.dtype == "float32"
-                and c.batch_size % max(self.num_shards, 1) == 0
-                and self.local_batch_size % 8 == 0)
-
-    def _lr_schedule(self):
-        """(end_frac, transition_steps) for the in-kernel lr schedule,
-        or None (constant lr) — the optax.linear_schedule twin
-        (ops/learner_kernel.py::_sched_lr)."""
-        c = self.cfg
-        if c.lr_decay_env_steps <= 0:
-            return None
-        return (c.lr_end_frac,
-                max(c.lr_decay_env_steps * c.updates_per_step
-                    // max(c.rollout_steps, 1), 1))
-
     def _lr(self, lr: float):
         """Constant lr, or the linear-decay optax schedule keyed on the
-        gradient-step count (the XLA-learner side of _lr_schedule)."""
-        sched = self._lr_schedule()
-        if sched is None:
-            return lr
-        return optax.linear_schedule(lr, lr * sched[0], sched[1])
-
-    @property
-    def _kernel_batch_size(self) -> int:
-        """Rows the update kernel consumes per update: the GLOBAL batch
-        (under shard_map the K per-shard minibatches are all_gathered,
-        so every shard's kernel sees the full union batch)."""
-        return self.local_batch_size * max(self.num_shards, 1)
-
-    def _kernel_block(self) -> int:
-        """Largest power-of-two-reduced block <= learner_block that
-        divides the minibatch (the kernel grid needs uniform blocks).
-
-        Hardware measurement (round 3): at K=16 updates x batch 8192 the
-        kernel's scoped-VMEM sits 50 KB over the 16 MB limit at block
-        512 (the per-update loss output block and the double-buffered
-        batch blocks grow with K) — halve the block above K=8 unless the
-        user explicitly sized it."""
-        blk = min(self.cfg.learner_block, self._kernel_batch_size)
-        if (self.cfg.updates_per_step > 8 and self.cfg.learner_block == 512
-                and blk > 256):
-            blk = 256
-        while self._kernel_batch_size % blk:
-            blk //= 2
-        return blk
-
-    def _kernel_update_phase(self, st: DDPGState, ready):
-        """The warmup-gated K-update learner phase through the fused
-        Pallas kernel — the op-stream-free twin of gated_update_scan +
-        _update_once (same rng splits, same presampled batches bitwise,
-        same Adam/Polyak semantics; ops/learner_kernel.py docstring)."""
-        from ..ops import learner_kernel as lk
-
+        gradient-step count."""
         c = self.cfg
-        h = tuple(c.hidden)
-        run = lk.ddpg_update_phase(
-            h, self.env.obs_shape[0], c.updates_per_step,
-            self._kernel_batch_size, actor_lr=c.actor_lr,
-            critic_lr=c.critic_lr, gamma=c.gamma, tau=c.tau,
-            block_size=self._kernel_block(),
-            interpret=jax.default_backend() != "tpu",
-            mm_precision=c.learner_precision,
-            actor_grad_critic=c.actor_grad_critic,
-            lr_schedule=self._lr_schedule())
-        presample = replay_presample(self.replay, c.sample, c.batch_size,
-                                     self.num_shards, self.dist_axis)
-        gather = gather_batches(self.dist_axis)
-
-        def do(s):
-            rng, k = jax.random.split(s.rng)
-            s = s._replace(rng=rng)
-            keys = jax.random.split(k, c.updates_per_step)
-            batches = gather(presample(s, keys))
-            # The state already holds the kernel's flat operand lists —
-            # zero relayout ops on the hot path.
-            groups = (s.actor, s.critic, s.actor_target, s.critic_target,
-                      s.actor_opt[0].mu, s.actor_opt[0].nu,
-                      s.critic_opt[0].mu, s.critic_opt[0].nu)
-            t0 = s.actor_opt[0].count
-            new, closs, aloss = run(groups, batches, t0)
-            count = t0 + jnp.int32(c.updates_per_step)
-            a_opt = (s.actor_opt[0]._replace(
-                count=count, mu=new[4], nu=new[5]),
-            ) + tuple(s.actor_opt[1:])
-            c_opt = (s.critic_opt[0]._replace(
-                count=count, mu=new[6], nu=new[7]),
-            ) + tuple(s.critic_opt[1:])
-            s = s._replace(actor=new[0], critic=new[1],
-                           actor_target=new[2], critic_target=new[3],
-                           actor_opt=a_opt, critic_opt=c_opt)
-            return s, {"critic_loss": jnp.mean(closs),
-                       "actor_loss": jnp.mean(aloss)}
-
-        zero = {"critic_loss": jnp.float32(0.0),
-                "actor_loss": jnp.float32(0.0)}
-        if ready is True:   # static: warmup disabled, no cond branch
-            return do(st)
-        return jax.lax.cond(ready, do, lambda s: (s, zero), st)
+        if c.lr_decay_env_steps <= 0:
+            return lr
+        return optax.linear_schedule(
+            lr, lr * c.lr_end_frac,
+            max(c.lr_decay_env_steps * c.updates_per_step
+                // max(c.rollout_steps, 1), 1))
 
     def greedy_policy(self, st: DDPGState):
         """Deterministic policy fn(obs) -> action (no OU noise)."""
@@ -572,64 +355,38 @@ class DDPG:
                                num_steps)
 
     # --- the fused actor-learner step ---------------------------------------
-    def train_step(self, st: DDPGState, capture: bool = False,
-                   fused: bool = False) -> tuple[DDPGState, dict]:
+    def train_step(self, st: DDPGState, capture: bool = False
+                   ) -> tuple[DDPGState, dict]:
         """rollout_steps env-steps + replay insert + updates_per_step
-        gradient updates, as one jit-able program.
-
-        fused=True runs the rollout through the Pallas actor-in-the-loop
-        kernel (ops/policy_rollout.py) instead of the XLA env scan —
-        numerically twinned (tests/test_policy_rollout.py), an order of
-        magnitude faster on TPU (BASELINE.md round-2 throughput table).
-
-        When the agent is in kernel-learner mode (cfg.learner), the
-        whole K-update learner phase runs as ONE Pallas kernel
-        (ops/learner_kernel.py) instead of the XLA update scan — same
-        presampled batches bitwise, same Adam/Polyak semantics, zero
-        intermediate HBM traffic, on a state that keeps the learner
-        groups in the kernel's flat operand layout.
-        """
+        gradient updates, as one jit-able program."""
         c = self.cfg
         rng = st.rng
         sigma = self._sigma(st.env_steps)
 
-        if fused:
-            from ..ops.policy_rollout import policy_rollout
-            run = policy_rollout(self.env, tuple(c.hidden), c.ou_theta,
-                                 c.rollout_steps)
-            env_state, obs, noise, traj = run(
-                st.env_state, st.obs, st.noise, st.actor, st.env_steps,
-                sigma)
-        else:
-            # Hoist the (possibly kernel-flat) actor params to a tree
-            # once, outside the scan body.
-            actor_tree = self._actor_tree(st.actor)
+        def env_body(carry, t):
+            env_state, obs, noise = carry
+            noise = self._ou_step(noise, env_state.env_seed, t, sigma)
+            action = jnp.clip(
+                self.actor_net.apply(st.actor, obs) + noise,
+                -1.0, 1.0)
+            env_state, next_obs, reward, done, _ = self.env.step(
+                env_state, action)
+            # Reset the OU state of envs that finished (fresh episode).
+            noise = jnp.where(done[:, None], 0.0, noise)
+            return ((env_state, next_obs, noise),
+                    (obs, action, reward, done))
 
-            def env_body(carry, t):
-                env_state, obs, noise = carry
-                noise = self._ou_step(noise, env_state.env_seed, t, sigma)
-                action = jnp.clip(
-                    self.actor_net.apply(actor_tree, obs) + noise,
-                    -1.0, 1.0)
-                env_state, next_obs, reward, done, _ = self.env.step(
-                    env_state, action)
-                # Reset the OU state of envs that finished (fresh episode).
-                noise = jnp.where(done[:, None], 0.0, noise)
-                return ((env_state, next_obs, noise),
-                        (obs, action, reward, done))
-
-            (env_state, obs, noise), traj = jax.lax.scan(
-                env_body, (st.env_state, st.obs, st.noise),
-                st.env_steps + jnp.arange(c.rollout_steps, dtype=jnp.int32))
+        (env_state, obs, noise), traj = jax.lax.scan(
+            env_body, (st.env_state, st.obs, st.noise),
+            st.env_steps + jnp.arange(c.rollout_steps, dtype=jnp.int32))
         # Pixel (quantized) rings insert AFTER the update phase: the
         # minibatch gather then reads the pre-insert ring and this
         # step's DUS is the ring's LAST use, so XLA updates the
         # multi-GB uint8 buffer in place — with insert-then-sample the
         # gather kept the old ring value live and buffer assignment
-        # rewrote the full ring every train step (~5 ms/step at 512
-        # envs x 256 slots, 20% of e2e; round-4 hlo_stats trace,
-        # BASELINE.md). Cost: the freshest rollout_steps transitions
-        # enter the candidate set one step later (draw odds per row
+        # rewrote the full ring every train step. Cost: the freshest
+        # rollout_steps transitions enter the candidate set one step
+        # later (draw odds per row
         # ~1/capacity — statistically nil; keep warmup_env_steps >=
         # rollout_steps, the default, so the first gated-on update
         # never sees the empty ring). State-obs rings keep the original
@@ -650,9 +407,7 @@ class DDPG:
 
         ready = (True if c.warmup_env_steps <= 0
                  else env_steps >= c.warmup_env_steps)
-        if self.kernel_mode:
-            st, losses = self._kernel_update_phase(st, ready)
-        elif c.polyak_cadence == "per_step" and c.updates_per_step > 0:
+        if c.polyak_cadence == "per_step" and c.updates_per_step > 0:
             st, losses = self._frozen_target_update_scan(
                 st, ready, replay_presample(self.replay, c.sample,
                                             c.batch_size, self.num_shards,
@@ -689,36 +444,17 @@ class DDPG:
         metrics["reward_mean"] = reward_mean
         metrics["done_frac"] = done_frac
         metrics["env_steps"] = env_steps
-        # 1.0 = fused Pallas update kernel, 0.0 = XLA update scan — so a
-        # user benchmarking "the kernel" can see which one actually ran
-        # (learner="auto" silently falls back off the kernel window).
-        metrics["learner_impl"] = jnp.float32(1.0 if self.kernel_mode
-                                              else 0.0)
         return st, metrics
 
-    def fusable(self) -> bool:
-        """Whether the Pallas actor-in-the-loop rollout covers this
-        env/config shape (ops/policy_rollout.py)."""
-        from ..ops.policy_rollout import fusable
-        return fusable(self.env, tuple(self.cfg.hidden))
-
-    def make_train_step(self, capture: bool = False, fused=None):
+    def make_train_step(self, capture: bool = False):
         """Jitted train_step with donated state. capture=True additionally
         returns the rollout chunk in metrics["traj"] (time-major
-        (obs, action, reward, done)) for the event-log sink. fused=None
-        auto-selects the Pallas actor-rollout kernel on TPU when the
-        shape is coverable (single-device or per-shard batches only —
-        under the SPMD partitioner a pallas_call cannot be re-sharded).
-        The learner implementation was resolved at construction
-        (cfg.learner / self.kernel_mode)."""
-        return jax.jit(functools.partial(self.train_step, capture=capture,
-                                         fused=resolve_fused(self, fused)),
+        (obs, action, reward, done)) for the event-log sink."""
+        return jax.jit(functools.partial(self.train_step, capture=capture),
                        donate_argnums=(0,))
 
-    def make_train_scan(self, num_calls: int, capture: bool = False,
-                        fused=None):
+    def make_train_scan(self, num_calls: int, capture: bool = False):
         """`num_calls` train steps as ONE jitted dispatch (stacked
         metrics) — amortizes the per-call dispatch constant; see
         agents/common.py::make_train_scan."""
-        return make_train_scan(self, num_calls, capture=capture,
-                               fused=fused)
+        return make_train_scan(self, num_calls, capture=capture)

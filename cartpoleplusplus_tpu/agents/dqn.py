@@ -2,9 +2,9 @@
 
 Reference counterpart: `dqn_cartpole.py` — a keras-rl `DQNAgent` fit on the
 discrete env (SURVEY.md §2a/§3.4; BASELINE discrete configs
-/root/repo/BASELINE.json:7-8; reference mount empty this session).
+BASELINE.json:7-8).
 
-TPU-native redesign: same fused actor-learner shape as ddpg.py — one jitted
+Redesign: same fused actor-learner shape as ddpg.py — one jitted
 `train_step` = epsilon-greedy rollout scan + replay insert + K TD(0)
 updates with a Polyak (soft) target network. keras-rl's Python callback
 loop is replaced by `lax.scan`.
@@ -23,21 +23,19 @@ import optax
 from ..env import CartPole3D
 from ..models import QNetMLP, VisualQNet, polyak
 from ..utils.prng import hash_words, uniform
-from .common import (TAG_EPS_ACT, TAG_EPS_GATE, _notice_learner_fallback,
-                     as_key, gated_update_scan, gather_batches, local_batch,
-                     make_train_scan, replay_presample, replay_sampler,
-                     resolve_fused, run_rollout)
+from .common import (TAG_EPS_ACT, TAG_EPS_GATE, as_key, gated_update_scan,
+                     local_batch, make_train_scan, replay_presample,
+                     replay_sampler, run_rollout)
 from .replay import ReplayBuffer, ReplayState
 
 
 @dataclasses.dataclass(frozen=True)
 class DQNConfig:
-    # Defaults are the round-2 TPU sweep winner (BASELINE.md learning
-    # table): 40k per-env steps at 1024 envs reaches eval mean episode
-    # length 199.98/200 — the greedy policy balances to the cap. The
-    # lever was the learning rate: 5e-4 plateaued at ~25, 2e-4 at ~39,
-    # 1e-4 at ~159, 5e-5 solves (the TD target through the soft target
-    # net tolerates far less optimizer noise than the sweep's start).
+    # Defaults are the tuned recipe: 40k per-env steps at 1024 envs
+    # reaches eval mean episode length ~200/200 — the greedy policy
+    # balances to the cap. The lever was the learning rate: larger
+    # rates plateaued far below the cap (the TD target through the
+    # soft target net tolerates little optimizer noise).
     hidden: tuple = (256, 256)
     lr: float = 5e-5
     gamma: float = 0.99
@@ -53,15 +51,6 @@ class DQNConfig:
     double_dqn: bool = True
     dtype: str = "float32"
     sample: str = "column"           # replay sampling: column (fast) | uniform
-    # Learner implementation: "xla" (the upd_body scan), "kernel" (the
-    # whole K-update phase as ONE Pallas kernel with the Q/target/Adam
-    # state VMEM-resident — ops/learner_kernel.py), or "auto" (kernel on
-    # a single TPU device when the config shape is covered). Kernel-mode
-    # states keep the 4 learner groups in the kernel's flat operand
-    # layout; checkpoints are converted to canonical trees (train.py).
-    learner: str = "auto"
-    learner_block: int = 512         # kernel batch-block (VMEM budget)
-    learner_precision: str | None = None  # in-kernel matmul precision
     # Pixel-obs encoder: "conv" | "patch" (see DDPGConfig.encoder).
     encoder: str = "conv"
     # Conv-encoder channel widths (pixel obs only; see DDPGConfig).
@@ -114,40 +103,6 @@ class DQN:
                     f"divide num_envs ({env.num_envs}) — lower "
                     f"--<agent>.batch-size or use sample='column'")
         self.tx = optax.adam(config.lr)
-        if config.learner == "kernel":
-            if not self.kernel_learner_ok():
-                raise ValueError("config shape not coverable by the "
-                                 "fused update kernel (see "
-                                 "DQN.kernel_learner_ok)")
-            self.kernel_mode = True
-        elif config.learner == "auto":
-            # Same placement rule as resolve_fused: single device, or
-            # per-shard bodies under shard_map (dist_axis).
-            self.kernel_mode = (self.kernel_learner_ok()
-                                and jax.default_backend() == "tpu"
-                                and (len(jax.devices()) == 1
-                                     or self.dist_axis is not None))
-        elif config.learner == "xla":
-            self.kernel_mode = False
-        else:
-            raise ValueError(f"unknown learner {config.learner!r}")
-        _notice_learner_fallback("dqn", config.learner, self.kernel_mode)
-
-    def kernel_learner_ok(self) -> bool:
-        """Whether ops/learner_kernel.py covers this config (state obs,
-        default semantics, f32, presample-able replay). Under shard_map
-        the kernel composes via batch replication — the K per-shard
-        minibatches are all_gathered and every shard runs the identical
-        full-batch kernel (agents/common.py::gather_batches), so the
-        global batch must split evenly over shards."""
-        c = self.cfg
-        return (self.env.obs_mode != "pixels"
-                and not self.replay.quantize_obs
-                and len(c.hidden) >= 1
-                and c.updates_per_step >= 1   # a K=0 phase has no grid
-                and c.dtype == "float32"
-                and c.batch_size % max(self.num_shards, 1) == 0
-                and local_batch(c.batch_size, self.num_shards) % 8 == 0)
 
     def init(self, key) -> DQNState:
         k_q, k_env, k_run = jax.random.split(as_key(key), 3)
@@ -158,49 +113,7 @@ class DQN:
             q=q, q_target=jax.tree.map(jnp.copy, q), opt=self.tx.init(q),
             replay=self.replay.init(), env_state=env_state, obs=obs,
             rng=k_run, env_steps=jnp.int32(0))
-        return self.state_from_tree(st) if self.kernel_mode else st
-
-    # --- kernel-mode state layout (see agents/ddpg.py for rationale) ----
-    def state_to_tree(self, st: DQNState) -> DQNState:
-        """Kernel-layout state -> canonical flax-tree state (no-op for
-        tree-mode states). The canonical layout is what checkpoints
-        hold (train.py converts at the save/restore boundary)."""
-        if not isinstance(st.q, (list, tuple)):
-            return st
-        from ..ops import learner_kernel as lk
-
-        h = tuple(self.cfg.hidden)
-        na = self.env.num_actions
-        return st._replace(
-            q=lk.unflatten_actor(st.q, h, action_dim=na),
-            q_target=lk.unflatten_actor(st.q_target, h, action_dim=na),
-            opt=(st.opt[0]._replace(
-                mu=lk.unflatten_actor(st.opt[0].mu, h, action_dim=na),
-                nu=lk.unflatten_actor(st.opt[0].nu, h, action_dim=na)),
-            ) + tuple(st.opt[1:]))
-
-    def state_from_tree(self, st: DQNState) -> DQNState:
-        """Canonical tree state -> this agent's native layout."""
-        if not self.kernel_mode or isinstance(st.q, (list, tuple)):
-            return st
-        from ..ops import learner_kernel as lk
-
-        h = tuple(self.cfg.hidden)
-        return st._replace(
-            q=lk.flatten_actor(st.q, h),
-            q_target=lk.flatten_actor(st.q_target, h),
-            opt=(st.opt[0]._replace(
-                mu=lk.flatten_actor(st.opt[0].mu, h),
-                nu=lk.flatten_actor(st.opt[0].nu, h)),
-            ) + tuple(st.opt[1:]))
-
-    def _q_tree(self, q_params):
-        """Q params as the flax tree (unflattens kernel layout)."""
-        if isinstance(q_params, (list, tuple)):
-            from ..ops import learner_kernel as lk
-            return lk.unflatten_actor(q_params, tuple(self.cfg.hidden),
-                                      action_dim=self.env.num_actions)
-        return q_params
+        return st
 
     def epsilon(self, env_steps):
         c = self.cfg
@@ -213,7 +126,7 @@ class DQN:
     def act(self, q_params, obs, env_seed, t, eps):
         """Epsilon-greedy batched action; exploration is a counter-PRNG
         function of (per-env seed, global step) — sharding-independent."""
-        qv = self.q_net.apply(self._q_tree(q_params), obs)
+        qv = self.q_net.apply(q_params, obs)
         greedy = jnp.argmax(qv, axis=-1).astype(jnp.int32)
         rand = (hash_words(env_seed, t, TAG_EPS_ACT)
                 % jnp.uint32(self.env.num_actions)).astype(jnp.int32)
@@ -222,8 +135,7 @@ class DQN:
 
     def greedy_policy(self, st: DQNState):
         """Greedy policy fn(obs) -> action (epsilon = 0)."""
-        q_tree = self._q_tree(st.q)
-        return lambda o: jnp.argmax(self.q_net.apply(q_tree, o),
+        return lambda o: jnp.argmax(self.q_net.apply(st.q, o),
                                     -1).astype(jnp.int32)
 
     def evaluate(self, st: DQNState, num_steps: int = 200, seed: int = 0):
@@ -247,34 +159,24 @@ class DQN:
         q_sa = jnp.take_along_axis(qv, action[:, None], 1)[:, 0]
         return jnp.mean(optax.huber_loss(q_sa, jax.lax.stop_gradient(y)))
 
-    def train_step(self, st: DQNState, capture: bool = False,
-                   fused: bool = False) -> tuple[DQNState, dict]:
-        """fused=True runs the rollout through the Pallas Q-in-the-loop
-        kernel (ops/policy_rollout.py::q_policy_rollout) instead of the
-        XLA env scan — numerically twinned (tests/test_policy_rollout.py),
-        same speedup family as the DDPG fused path (BASELINE.md)."""
+    def train_step(self, st: DQNState, capture: bool = False
+                   ) -> tuple[DQNState, dict]:
+        """Epsilon-greedy rollout + replay insert + K TD(0) updates, as
+        one jit-able program."""
         c = self.cfg
         rng = st.rng
         eps = self.epsilon(st.env_steps)
         env_seed = st.env_state.env_seed
 
-        if fused:
-            from ..ops.policy_rollout import q_policy_rollout
-            run = q_policy_rollout(self.env, tuple(c.hidden),
-                                   c.rollout_steps)
-            env_state, obs, traj = run(st.env_state, st.obs, st.q,
-                                       st.env_steps, eps)
-        else:
-            q_tree = self._q_tree(st.q)
-            env_state, obs, traj = run_rollout(
-                self.env,
-                lambda o, t: self.act(q_tree, o, env_seed, t, eps),
-                st.env_state, st.obs,
-                st.env_steps + jnp.arange(c.rollout_steps, dtype=jnp.int32))
+        env_state, obs, traj = run_rollout(
+            self.env,
+            lambda o, t: self.act(st.q, o, env_seed, t, eps),
+            st.env_state, st.obs,
+            st.env_steps + jnp.arange(c.rollout_steps, dtype=jnp.int32))
         # Pixel (quantized) rings insert AFTER the update phase so the
         # DUS is the ring's last use and XLA updates the multi-GB uint8
-        # buffer in place (see agents/ddpg.py for the rationale and the
-        # round-4 trace numbers). State-obs rings keep insert-first:
+        # buffer in place (see agents/ddpg.py for the rationale).
+        # State-obs rings keep insert-first:
         # their batch streams stay bitwise unchanged.
         late_insert = self.replay.quantize_obs
 
@@ -305,14 +207,11 @@ class DQN:
 
         ready = (True if c.warmup_env_steps <= 0
                  else env_steps >= c.warmup_env_steps)
-        if self.kernel_mode:
-            st, loss = self._kernel_update_phase(st, ready)
-        else:
-            st, loss = gated_update_scan(
-                st, upd_body, c.updates_per_step, ready, jnp.float32(0.0),
-                presample=replay_presample(self.replay, c.sample,
-                                           c.batch_size, self.num_shards,
-                                           self.dist_axis))
+        st, loss = gated_update_scan(
+            st, upd_body, c.updates_per_step, ready, jnp.float32(0.0),
+            presample=replay_presample(self.replay, c.sample,
+                                       c.batch_size, self.num_shards,
+                                       self.dist_axis))
         if late_insert:
             st = insert(st)
 
@@ -329,76 +228,17 @@ class DQN:
             "reward_mean": reward_mean,
             "done_frac": done_frac,
             "env_steps": env_steps,
-            # 1.0 = fused Pallas update kernel, 0.0 = XLA update scan.
-            "learner_impl": jnp.float32(1.0 if self.kernel_mode else 0.0),
         }
 
-    def _kernel_update_phase(self, st: DQNState, ready):
-        """The warmup-gated K-update learner phase through the fused
-        Pallas kernel — the op-stream-free twin of gated_update_scan +
-        upd_body (same rng splits -> bitwise-identical presampled
-        batches; ops/learner_kernel.py)."""
-        from ..ops import learner_kernel as lk
-
-        c = self.cfg
-        # Rows per update: the GLOBAL batch (per-shard minibatches are
-        # all_gathered under shard_map — see gather_batches).
-        kb = local_batch(c.batch_size, self.num_shards) \
-            * max(self.num_shards, 1)
-        blk = min(c.learner_block, kb)
-        while kb % blk:
-            blk //= 2
-        run = lk.dqn_update_phase(
-            tuple(c.hidden), self.env.obs_shape[0], c.updates_per_step,
-            kb, lr=c.lr, gamma=c.gamma, tau=c.tau,
-            num_actions=self.env.num_actions, double_dqn=c.double_dqn,
-            block_size=blk, interpret=jax.default_backend() != "tpu",
-            mm_precision=c.learner_precision)
-        presample = replay_presample(self.replay, c.sample, c.batch_size,
-                                     self.num_shards, self.dist_axis)
-        gather = gather_batches(self.dist_axis)
-
-        def do(s):
-            rng, k = jax.random.split(s.rng)
-            s = s._replace(rng=rng)
-            keys = jax.random.split(k, c.updates_per_step)
-            batches = gather(presample(s, keys))
-            groups = (s.q, s.q_target, s.opt[0].mu, s.opt[0].nu)
-            t0 = s.opt[0].count
-            new, loss = run(groups, batches, t0)
-            opt = (s.opt[0]._replace(
-                count=t0 + jnp.int32(c.updates_per_step),
-                mu=new[2], nu=new[3]),) + tuple(s.opt[1:])
-            s = s._replace(q=new[0], q_target=new[1], opt=opt)
-            return s, jnp.mean(loss)
-
-        if ready is True:   # static: warmup disabled, no cond branch
-            return do(st)
-        return jax.lax.cond(ready, do, lambda s: (s, jnp.float32(0.0)),
-                            st)
-
-    def fusable(self) -> bool:
-        """Whether the Pallas Q-in-the-loop rollout covers this
-        env/config shape (ops/policy_rollout.py::q_fusable)."""
-        from ..ops.policy_rollout import q_fusable
-        return (self.env.obs_mode != "pixels"
-                and q_fusable(self.env, tuple(self.cfg.hidden)))
-
-    def make_train_step(self, capture: bool = False, fused=None):
+    def make_train_step(self, capture: bool = False):
         """Jitted train_step with donated state. capture=True additionally
         returns the rollout chunk in metrics["traj"] (time-major
-        (obs, action, reward, done)) for the event-log sink. fused=None
-        auto-selects the Pallas Q-rollout kernel on TPU when the shape is
-        coverable (single-device or per-shard batches only — under the
-        SPMD partitioner a pallas_call cannot be re-sharded)."""
-        return jax.jit(functools.partial(self.train_step, capture=capture,
-                                         fused=resolve_fused(self, fused)),
+        (obs, action, reward, done)) for the event-log sink."""
+        return jax.jit(functools.partial(self.train_step, capture=capture),
                        donate_argnums=(0,))
 
-    def make_train_scan(self, num_calls: int, capture: bool = False,
-                        fused=None):
+    def make_train_scan(self, num_calls: int, capture: bool = False):
         """`num_calls` train steps as ONE jitted dispatch (stacked
         metrics) — amortizes the per-call dispatch constant; see
         agents/common.py::make_train_scan."""
-        return make_train_scan(self, num_calls, capture=capture,
-                               fused=fused)
+        return make_train_scan(self, num_calls, capture=capture)

@@ -4,7 +4,7 @@ Reference counterpart: `lrpg_cartpole.py` — a TF softmax policy trained
 with the likelihood-ratio gradient over complete episodes (SURVEY.md §2a;
 reference mount empty this session).
 
-TPU-native redesign: on-policy batched rollouts under `lax.scan`; returns-
+Redesign: on-policy batched rollouts under `lax.scan`; returns-
 to-go are computed with a reverse scan that zeroes across the masked
 auto-reset episode boundaries, so one fixed-length rollout window spans
 many (partial) episodes across the 4096-env batch — the batched equivalent
@@ -25,8 +25,7 @@ import optax
 from ..env import CartPole3D
 from ..models import PolicyMLP
 from ..utils.prng import gumbel
-from .common import (TAG_PG_GUMBEL, _notice_learner_fallback, as_key,
-                     make_train_scan, resolve_fused, run_rollout)
+from .common import TAG_PG_GUMBEL, as_key, make_train_scan, run_rollout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,15 +37,6 @@ class LRPGConfig:
     baseline_rate: float = 0.05      # EMA rate for the scalar return baseline
     entropy_coef: float = 0.1   # strong: prevents softmax collapse (see _loss)
     dtype: str = "float32"
-    # Learner implementation: "xla" (jax.grad + optax), "kernel" (the
-    # whole softmax-PG update as ONE Pallas kernel —
-    # ops/learner_kernel.py::lrpg_update_phase), or "auto" (kernel on a
-    # single TPU device when the shape is covered). Kernel-mode states
-    # keep params + Adam moments in the kernel's flat operand layout;
-    # checkpoints are converted to canonical trees (train.py).
-    learner: str = "auto"
-    learner_block: int = 1024        # kernel row-block (VMEM budget)
-    learner_precision: str | None = None  # in-kernel matmul precision
     # Pixel-obs encoder ("conv" | "patch"), ignored for state obs.
     encoder: str = "conv"
     # Conv-encoder channel widths (pixel obs only; see DDPGConfig).
@@ -83,9 +73,8 @@ class LRPG:
         shard_map (dist/shardmap.py) with a PER-SHARD env. The window
         statistics the update depends on (returns baseline, advantage
         mean/std) become GLOBAL via pmean, and the gradient pmeans over
-        the axis (kernel mode all_gathers the window instead — see
-        _kernel_update), so the sharded math equals the single-device
-        run on the union batch."""
+        the axis, so the sharded math equals the single-device run on
+        the union batch."""
         if not env.params.discrete_actions:
             raise ValueError("LRPG needs the discrete env")
         self.env = env
@@ -107,35 +96,6 @@ class LRPG:
             self.net = PolicyMLP(num_actions=env.num_actions,
                                  hidden=config.hidden, dtype=dtype)
         self.tx = optax.adam(config.lr)
-        if config.learner == "kernel":
-            if not self.kernel_learner_ok():
-                raise ValueError("config shape not coverable by the "
-                                 "fused update kernel (see "
-                                 "LRPG.kernel_learner_ok)")
-            self.kernel_mode = True
-        elif config.learner == "auto":
-            # Same placement rule as resolve_fused: single device, or
-            # per-shard bodies under shard_map (dist_axis).
-            self.kernel_mode = (self.kernel_learner_ok()
-                                and jax.default_backend() == "tpu"
-                                and (len(jax.devices()) == 1
-                                     or self.dist_axis is not None))
-        elif config.learner == "xla":
-            self.kernel_mode = False
-        else:
-            raise ValueError(f"unknown learner {config.learner!r}")
-        _notice_learner_fallback("lrpg", config.learner, self.kernel_mode)
-
-    def kernel_learner_ok(self) -> bool:
-        """Whether ops/learner_kernel.py::lrpg_update_phase covers this
-        config (state obs, f32, lane-coverable action count, row count
-        divisible into blocks)."""
-        c = self.cfg
-        return (self.env.obs_mode != "pixels"
-                and len(c.hidden) >= 1
-                and c.dtype == "float32"
-                and self.env.num_actions <= 8
-                and (c.rollout_steps * self.env.num_envs) % 8 == 0)
 
     def init(self, key) -> LRPGState:
         k_net, k_env, k_run = jax.random.split(as_key(key), 3)
@@ -145,47 +105,7 @@ class LRPG:
         st = LRPGState(params=params, opt=self.tx.init(params),
                        baseline=jnp.float32(0.0), env_state=env_state,
                        obs=obs, rng=k_run, env_steps=jnp.int32(0))
-        return self.state_from_tree(st) if self.kernel_mode else st
-
-    # --- kernel-mode state layout (see agents/ddpg.py for rationale) ----
-    def state_to_tree(self, st: LRPGState) -> LRPGState:
-        """Kernel-layout state -> canonical flax-tree state (no-op for
-        tree-mode states). Checkpoints hold the canonical layout
-        (train.py converts at the save/restore boundary)."""
-        if not isinstance(st.params, (list, tuple)):
-            return st
-        from ..ops import learner_kernel as lk
-
-        h = tuple(self.cfg.hidden)
-        na = self.env.num_actions
-        return st._replace(
-            params=lk.unflatten_actor(st.params, h, action_dim=na),
-            opt=(st.opt[0]._replace(
-                mu=lk.unflatten_actor(st.opt[0].mu, h, action_dim=na),
-                nu=lk.unflatten_actor(st.opt[0].nu, h, action_dim=na)),
-            ) + tuple(st.opt[1:]))
-
-    def state_from_tree(self, st: LRPGState) -> LRPGState:
-        """Canonical tree state -> this agent's native layout."""
-        if not self.kernel_mode or isinstance(st.params, (list, tuple)):
-            return st
-        from ..ops import learner_kernel as lk
-
-        h = tuple(self.cfg.hidden)
-        return st._replace(
-            params=lk.flatten_actor(st.params, h),
-            opt=(st.opt[0]._replace(
-                mu=lk.flatten_actor(st.opt[0].mu, h),
-                nu=lk.flatten_actor(st.opt[0].nu, h)),
-            ) + tuple(st.opt[1:]))
-
-    def _params_tree(self, params):
-        """Policy params as the flax tree (unflattens kernel layout)."""
-        if isinstance(params, (list, tuple)):
-            from ..ops import learner_kernel as lk
-            return lk.unflatten_actor(params, tuple(self.cfg.hidden),
-                                      action_dim=self.env.num_actions)
-        return params
+        return st
 
     def act(self, params, obs, env_seed, t):
         """Exact softmax sample via Gumbel-max over counter-PRNG draws:
@@ -193,15 +113,14 @@ class LRPG:
         sampling is bitwise independent of batch slot and sharding (the
         CLAUDE.md randomness invariant — jax.random.categorical with a
         threaded key would make the draw depend on batch position)."""
-        logits = self.net.apply(self._params_tree(params), obs)
+        logits = self.net.apply(params, obs)
         g = jnp.stack([gumbel(env_seed, t, TAG_PG_GUMBEL, a)
                        for a in range(self.env.num_actions)], axis=-1)
         return jnp.argmax(logits + g, axis=-1).astype(jnp.int32)
 
     def greedy_policy(self, st: LRPGState):
         """Argmax policy fn(obs) -> action."""
-        tree = self._params_tree(st.params)
-        return lambda o: jnp.argmax(self.net.apply(tree, o),
+        return lambda o: jnp.argmax(self.net.apply(st.params, o),
                                     -1).astype(jnp.int32)
 
     def evaluate(self, st: LRPGState, num_steps: int = 200, seed: int = 0):
@@ -219,29 +138,19 @@ class LRPG:
         entropy = -jnp.mean(jnp.sum(jnp.exp(logp) * logp, axis=-1))
         return pg - self.cfg.entropy_coef * entropy
 
-    def train_step(self, st: LRPGState, capture: bool = False,
-                   fused: bool = False) -> tuple[LRPGState, dict]:
-        """fused=True runs the rollout through the Pallas
-        softmax-sample-in-the-loop kernel (ops/policy_rollout.py) —
-        numerically twinned (tests/test_policy_rollout.py)."""
+    def train_step(self, st: LRPGState, capture: bool = False
+                   ) -> tuple[LRPGState, dict]:
+        """On-policy rollout window + returns-to-go + one policy-gradient
+        update, as one jit-able program."""
         c = self.cfg
         rng = st.rng
         env_seed = st.env_state.env_seed
 
-        if fused:
-            from ..ops.policy_rollout import pg_policy_rollout
-            run = pg_policy_rollout(self.env, tuple(c.hidden),
-                                    c.rollout_steps)
-            env_state, obs, (obs_t, act_t, rew_t, done_t) = run(
-                st.env_state, st.obs, st.params, st.env_steps,
-                jnp.float32(0.0))
-        else:
-            tree = self._params_tree(st.params)
-            env_state, obs, (obs_t, act_t, rew_t, done_t) = run_rollout(
-                self.env,
-                lambda o, t: self.act(tree, o, env_seed, t),
-                st.env_state, st.obs,
-                st.env_steps + jnp.arange(c.rollout_steps, dtype=jnp.int32))
+        env_state, obs, (obs_t, act_t, rew_t, done_t) = run_rollout(
+            self.env,
+            lambda o, t: self.act(st.params, o, env_seed, t),
+            st.env_state, st.obs,
+            st.env_steps + jnp.arange(c.rollout_steps, dtype=jnp.int32))
 
         # Bootstrap the cut-off tail with the baseline (bias-variance
         # trade-off for the fixed window; exact at episode boundaries).
@@ -268,16 +177,12 @@ class LRPG:
         adv = g - g_mean
         adv = adv / (jnp.sqrt(gmean(adv * adv)) + 1e-6)
 
-        if self.kernel_mode:
-            params, opt, loss = self._kernel_update(
-                st, obs_t, act_t, jax.lax.stop_gradient(adv))
-        else:
-            loss, grad = jax.value_and_grad(self._loss)(
-                st.params, obs_t, act_t, jax.lax.stop_gradient(adv))
-            if self.dist_axis is not None:
-                loss, grad = jax.lax.pmean((loss, grad), self.dist_axis)
-            upd, opt = self.tx.update(grad, st.opt, st.params)
-            params = optax.apply_updates(st.params, upd)
+        loss, grad = jax.value_and_grad(self._loss)(
+            st.params, obs_t, act_t, jax.lax.stop_gradient(adv))
+        if self.dist_axis is not None:
+            loss, grad = jax.lax.pmean((loss, grad), self.dist_axis)
+        upd, opt = self.tx.update(grad, st.opt, st.params)
+        params = optax.apply_updates(st.params, upd)
 
         st = LRPGState(params=params, opt=opt, baseline=baseline,
                        env_state=env_state, obs=obs, rng=rng,
@@ -288,72 +193,20 @@ class LRPG:
             "reward_mean": gmean(rew_t),
             "done_frac": gmean(done_t.astype(jnp.float32)),
             "env_steps": st.env_steps,
-            # 1.0 = fused Pallas update kernel, 0.0 = XLA jax.grad+optax.
-            "learner_impl": jnp.float32(1.0 if self.kernel_mode else 0.0),
         }
         if capture:
             metrics["traj"] = (obs_t, act_t, rew_t, done_t)
         return st, metrics
 
-    def _kernel_update(self, st: LRPGState, obs_t, act_t, adv):
-        """The softmax-PG Adam update as ONE Pallas kernel
-        (ops/learner_kernel.py::lrpg_update_phase) — the op-stream-free
-        twin of jax.grad(self._loss) + optax (same math, closed-form
-        softmax gradient; tests/test_learner_kernel.py pins both).
-
-        Under shard_map the kernel composes via window replication
-        (gradients cannot pmean inside a pallas_call): each shard
-        all_gathers the (T*B_local)-row windows into the union window
-        (one ICI collective per train step) and runs the IDENTICAL
-        full-window kernel redundantly, so params stay
-        bitwise-replicated and the math equals the XLA pmean path."""
-        from ..ops import learner_kernel as lk
-
-        c = self.cfg
-        n_local = c.rollout_steps * self.env.num_envs
-        n = n_local * max(self.num_shards, 1)
-        blk = min(c.learner_block, n)
-        while n % blk:
-            blk //= 2
-        run = lk.lrpg_update_phase(
-            tuple(c.hidden), self.env.obs_shape[0], n, lr=c.lr,
-            entropy_coef=c.entropy_coef,
-            num_actions=self.env.num_actions, block_size=blk,
-            interpret=jax.default_backend() != "tpu",
-            mm_precision=c.learner_precision)
-        window = (obs_t.reshape(n_local, -1), act_t.reshape(n_local),
-                  adv.reshape(n_local))
-        if self.dist_axis is not None:
-            window = tuple(
-                jax.lax.all_gather(x, self.dist_axis, axis=0, tiled=True)
-                for x in window)
-        groups = (st.params, st.opt[0].mu, st.opt[0].nu)
-        t0 = st.opt[0].count
-        new, loss = run(groups, window, t0)
-        opt = (st.opt[0]._replace(count=t0 + jnp.int32(1), mu=new[1],
-                                  nu=new[2]),) + tuple(st.opt[1:])
-        return new[0], opt, loss
-
-    def fusable(self) -> bool:
-        """Whether the Pallas softmax-sample rollout covers this
-        env/config shape (ops/policy_rollout.py::pg_fusable)."""
-        from ..ops.policy_rollout import pg_fusable
-        return pg_fusable(self.env, tuple(self.cfg.hidden))
-
-    def make_train_step(self, capture: bool = False, fused=None):
+    def make_train_step(self, capture: bool = False):
         """Jitted train_step with donated state. capture=True additionally
         returns the rollout chunk in metrics["traj"] (time-major
-        (obs, action, reward, done)) for the event-log sink. fused=None
-        auto-selects the Pallas rollout kernel on TPU when the shape is
-        coverable."""
-        return jax.jit(functools.partial(self.train_step, capture=capture,
-                                         fused=resolve_fused(self, fused)),
+        (obs, action, reward, done)) for the event-log sink."""
+        return jax.jit(functools.partial(self.train_step, capture=capture),
                        donate_argnums=(0,))
 
-    def make_train_scan(self, num_calls: int, capture: bool = False,
-                        fused=None):
+    def make_train_scan(self, num_calls: int, capture: bool = False):
         """`num_calls` train steps as ONE jitted dispatch (stacked
         metrics) — amortizes the per-call dispatch constant; see
         agents/common.py::make_train_scan."""
-        return make_train_scan(self, num_calls, capture=capture,
-                               fused=fused)
+        return make_train_scan(self, num_calls, capture=capture)

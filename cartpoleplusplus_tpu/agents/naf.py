@@ -4,7 +4,7 @@ Reference counterpart: `naf_cartpole.py` — continuous Q-learning with a
 quadratic advantage head A(s,a) = -1/2 (a-mu)^T P(s) (a-mu), target network
 and replay (SURVEY.md §2a; reference mount empty this session).
 
-TPU-native redesign: same fused actor-learner shape as ddpg.py; the
+Redesign: same fused actor-learner shape as ddpg.py; the
 quadratic-advantage algebra lives in models/nets.py::NafNet. Exploration is
 Gaussian noise on mu (the reference used OU/Gaussian variants).
 """
@@ -22,23 +22,20 @@ import optax
 from ..env import CartPole3D
 from ..models import NafNet, polyak
 from ..utils.prng import normal
-from .common import (TAG_NAF_X, TAG_NAF_Y, _notice_learner_fallback, as_key,
-                     gated_update_scan, gather_batches, local_batch,
-                     make_train_scan, replay_presample, resolve_fused,
+from .common import (TAG_NAF_X, TAG_NAF_Y, as_key, gated_update_scan,
+                     local_batch, make_train_scan, replay_presample,
                      run_rollout)
 from .replay import ReplayBuffer, ReplayState
 
 
 @dataclasses.dataclass(frozen=True)
 class NAFConfig:
-    # Defaults are the round-3 TPU sweep winner (BASELINE.md round-3
-    # learning table): with linear lr decay over 40k per-env steps the
-    # quadratic-advantage learner no longer walks off the solved policy
-    # late in training — 80k per-env steps at 1024 envs reaches eval
-    # mean episode length 199.2/200 (median 200); 40k steps reach 194.7
-    # (round 2 plateaued at 128.6/145.1 with constant lr; the round-2
-    # '80k steps collapse to ~47/3' regression was the motivating
-    # failure).
+    # Defaults are the tuned recipe: with linear lr decay over 40k
+    # per-env steps the quadratic-advantage learner no longer walks off
+    # the solved policy late in training (with a constant lr, long runs
+    # collapsed after an initially healthy phase). Its recipes sit near
+    # a basin boundary where the choice of matmul arithmetic can reroute
+    # a run (docs/design.md §16).
     hidden: tuple = (256, 256)
     lr: float = 5e-4
     gamma: float = 0.99
@@ -59,37 +56,9 @@ class NAFConfig:
     warmup_env_steps: int = 16
     dtype: str = "float32"
     sample: str = "column"           # replay sampling: column (fast) | uniform
-    # Learner implementation: "xla" | "kernel" | "auto" — see
-    # agents/ddpg.py. The kernel covers the full NAF update including
-    # the quadratic-advantage backward, clip_by_global_norm and the lr
-    # schedule (ops/learner_kernel.py NAF section); kernel-mode states
-    # keep params/target/Adam moments in the kernel's flat layout.
-    # Default is "xla" (unlike DDPG/DQN/LRPG). Why, after the round-4
-    # root-cause (docs/design.md §16): NAF's solving recipes sit on a
-    # basin boundary where the CHOICE of matmul arithmetic reroutes
-    # whole runs — the XLA learner itself at ambient highest precision
-    # collapses cells that XLA-default solves (46.0 vs 199.2 at
-    # 80k/seed 0), and the kernel's default Mosaic dot lowering is a
-    # third arithmetic drawing the same lottery (its measured cells:
-    # 3.0-200). No implementation is defective (kernel@highest matches
-    # the XLA twin to 1.5e-6 over 128 updates); "xla" is simply the
-    # arithmetic whose measured default-recipe cells all solve. For
-    # throughput-bound runs set "kernel" (+56% e2e at the scan-16
-    # cadence, BASELINE.md round 4) and re-draw unlucky seeds with the
-    # end-of-budget canary (RunConfig.canary_*) — measured 4/4 >= 150
-    # through the CLI.
-    learner: str = "xla"
-    learner_block: int = 512         # kernel batch-block (VMEM budget)
-    # In-kernel matmul precision: None = Mosaic's default f32 dot
-    # lowering (fastest); "highest" = twin-faithful f32 arithmetic
-    # (kernel == XLA twin to ~1e-6/128 updates) at ~-38% kernel
-    # throughput — for numerics debugging, not a quality lever.
-    learner_precision: str | None = None
     # Linear lr decay to lr * lr_end_frac over a PER-ENV step horizon
     # (0 = constant) — same late-training-drift rationale as
-    # DDPGConfig.lr_decay_env_steps; gradient-step keyed. Covered by
-    # BOTH learners (the kernel computes the optax.linear_schedule twin
-    # from its Adam step count — ops/learner_kernel.py::_sched_lr).
+    # DDPGConfig.lr_decay_env_steps; gradient-step keyed.
     lr_decay_env_steps: int = 40000
     lr_end_frac: float = 0.1
     # Pixel-obs encoder ("conv" | "patch"), ignored for state obs — the
@@ -157,60 +126,6 @@ class NAF:
                        config.max_grad_norm), optax.adam(lr))
                    if config.max_grad_norm > 0.0
                    else optax.adam(lr))
-        if config.learner == "kernel":
-            if not self.kernel_learner_ok():
-                raise ValueError("config shape not coverable by the "
-                                 "fused update kernel (see "
-                                 "NAF.kernel_learner_ok)")
-            self.kernel_mode = True
-        elif config.learner == "auto":
-            # Same placement rule as resolve_fused: single device, or
-            # per-shard bodies under shard_map (dist_axis).
-            self.kernel_mode = (self.kernel_learner_ok()
-                                and jax.default_backend() == "tpu"
-                                and (len(jax.devices()) == 1
-                                     or self.dist_axis is not None))
-        elif config.learner == "xla":
-            self.kernel_mode = False
-        else:
-            raise ValueError(f"unknown learner {config.learner!r}")
-        _notice_learner_fallback("naf", config.learner, self.kernel_mode)
-
-    def kernel_learner_ok(self) -> bool:
-        """ops/learner_kernel.py coverage for NAF (state obs, 2-D
-        actions, f32). Under shard_map the kernel composes via batch
-        replication (agents/common.py::gather_batches), so the global
-        batch must split evenly over shards."""
-        c = self.cfg
-        return (self.env.obs_mode != "pixels"
-                and self.env.action_dim == 2
-                and len(c.hidden) >= 1
-                and c.updates_per_step >= 1   # a K=0 phase has no grid
-                and c.dtype == "float32"
-                and c.batch_size % max(self.num_shards, 1) == 0
-                and local_batch(c.batch_size, self.num_shards) % 8 == 0)
-
-    def _lr_schedule(self):
-        """(end_frac, transition_steps) for the in-kernel lr schedule,
-        or None (constant lr) — the optax.linear_schedule twin."""
-        c = self.cfg
-        if c.lr_decay_env_steps <= 0:
-            return None
-        return (c.lr_end_frac,
-                max(c.lr_decay_env_steps * c.updates_per_step
-                    // max(c.rollout_steps, 1), 1))
-
-    # --- optax-state plumbing (clip changes the nesting level) ----------
-    def _adam_state(self, opt):
-        return opt[1][0] if self.cfg.max_grad_norm > 0.0 else opt[0]
-
-    def _with_adam_state(self, opt, count, mu, nu):
-        if self.cfg.max_grad_norm > 0.0:
-            inner = (opt[1][0]._replace(count=count, mu=mu, nu=nu),
-                     ) + tuple(opt[1][1:])
-            return (opt[0], inner) + tuple(opt[2:])
-        return (opt[0]._replace(count=count, mu=mu, nu=nu),
-                ) + tuple(opt[1:])
 
     def init(self, key) -> NAFState:
         k_net, k_env, k_run = jax.random.split(as_key(key), 3)
@@ -223,51 +138,12 @@ class NAF:
             opt=self.tx.init(params), replay=self.replay.init(),
             env_state=env_state, obs=obs, rng=k_run,
             env_steps=jnp.int32(0))
-        return self.state_from_tree(st) if self.kernel_mode else st
-
-    # --- kernel-mode state layout (see agents/ddpg.py for rationale) ----
-    def state_to_tree(self, st: NAFState) -> NAFState:
-        """Kernel-layout state -> canonical flax-tree state (the
-        checkpoint layout; no-op for tree-mode states)."""
-        if not isinstance(st.params, (list, tuple)):
-            return st
-        from ..ops import learner_kernel as lk
-
-        h = tuple(self.cfg.hidden)
-        a = self._adam_state(st.opt)
-        return st._replace(
-            params=lk.unflatten_naf(st.params, h),
-            target=lk.unflatten_naf(st.target, h),
-            opt=self._with_adam_state(
-                st.opt, a.count, lk.unflatten_naf(a.mu, h),
-                lk.unflatten_naf(a.nu, h)))
-
-    def state_from_tree(self, st: NAFState) -> NAFState:
-        """Canonical tree state -> this agent's native layout."""
-        if not self.kernel_mode or isinstance(st.params, (list, tuple)):
-            return st
-        from ..ops import learner_kernel as lk
-
-        h = tuple(self.cfg.hidden)
-        a = self._adam_state(st.opt)
-        return st._replace(
-            params=lk.flatten_naf(st.params, h),
-            target=lk.flatten_naf(st.target, h),
-            opt=self._with_adam_state(
-                st.opt, a.count, lk.flatten_naf(a.mu, h),
-                lk.flatten_naf(a.nu, h)))
-
-    def _params_tree(self, params):
-        """NafNet params as the flax tree (unflattens kernel layout)."""
-        if isinstance(params, (list, tuple)):
-            from ..ops import learner_kernel as lk
-            return lk.unflatten_naf(params, tuple(self.cfg.hidden))
-        return params
+        return st
 
     def act(self, params, obs, env_seed=None, t=None, sigma=None):
         """mu(s), plus counter-PRNG Gaussian exploration when
         (env_seed, t) are given — sharding-independent."""
-        _, mu = self.net.apply(self._params_tree(params), obs)
+        _, mu = self.net.apply(params, obs)
         if env_seed is None:
             return mu
         s = self.cfg.noise_sigma if sigma is None else sigma
@@ -306,34 +182,25 @@ class NAF:
         q, _, _ = self.net.apply(params, obs, action)
         return jnp.mean(jnp.square(q - jax.lax.stop_gradient(y)))
 
-    def train_step(self, st: NAFState, capture: bool = False,
-                   fused: bool = False) -> tuple[NAFState, dict]:
-        """fused=True runs the rollout through the Pallas mu-in-the-loop
-        kernel (ops/policy_rollout.py::naf_policy_rollout) instead of the
-        XLA env scan — numerically twinned (tests/test_policy_rollout.py)."""
+    def train_step(self, st: NAFState, capture: bool = False
+                   ) -> tuple[NAFState, dict]:
+        """Gaussian-exploration rollout + replay insert + K quadratic-
+        advantage TD updates, as one jit-able program."""
         c = self.cfg
         rng = st.rng
         env_seed = st.env_state.env_seed
         sigma = self._sigma(st.env_steps)
 
-        if fused:
-            from ..ops.policy_rollout import naf_policy_rollout
-            run = naf_policy_rollout(self.env, tuple(c.hidden),
-                                     c.rollout_steps)
-            env_state, obs, traj = run(st.env_state, st.obs, st.params,
-                                       st.env_steps, sigma)
-        else:
-            p_tree = self._params_tree(st.params)
-            env_state, obs, traj = run_rollout(
-                self.env,
-                lambda o, t: self.act(p_tree, o, env_seed, t, sigma),
-                st.env_state, st.obs,
-                st.env_steps + jnp.arange(c.rollout_steps, dtype=jnp.int32))
+        env_state, obs, traj = run_rollout(
+            self.env,
+            lambda o, t: self.act(st.params, o, env_seed, t, sigma),
+            st.env_state, st.obs,
+            st.env_steps + jnp.arange(c.rollout_steps, dtype=jnp.int32))
         # Pixel (quantized) rings insert AFTER the update phase so the
         # DUS is the ring's last use and XLA updates the multi-GB uint8
-        # buffer in place (see agents/ddpg.py for rationale + trace
-        # numbers); state rings keep insert-first (bitwise-unchanged
-        # batch streams for the promoted recipes).
+        # buffer in place (see agents/ddpg.py for the rationale); state
+        # rings keep insert-first (bitwise-unchanged batch streams for
+        # the promoted recipes).
         late_insert = self.replay.quantize_obs
         if not late_insert:
             st = st._replace(replay=self.replay.add_trajectory(
@@ -355,14 +222,11 @@ class NAF:
 
         ready = (True if c.warmup_env_steps <= 0
                  else env_steps >= c.warmup_env_steps)
-        if self.kernel_mode:
-            st, loss = self._kernel_update_phase(st, ready)
-        else:
-            st, loss = gated_update_scan(
-                st, upd_body, c.updates_per_step, ready, jnp.float32(0.0),
-                presample=replay_presample(self.replay, c.sample,
-                                           c.batch_size, self.num_shards,
-                                           self.dist_axis))
+        st, loss = gated_update_scan(
+            st, upd_body, c.updates_per_step, ready, jnp.float32(0.0),
+            presample=replay_presample(self.replay, c.sample,
+                                       c.batch_size, self.num_shards,
+                                       self.dist_axis))
         if late_insert:
             st = st._replace(replay=self.replay.add_trajectory(
                 st.replay, *traj, aligned=True))
@@ -379,75 +243,17 @@ class NAF:
             "reward_mean": reward_mean,
             "done_frac": done_frac,
             "env_steps": env_steps,
-            # 1.0 = fused Pallas update kernel, 0.0 = XLA update scan.
-            "learner_impl": jnp.float32(1.0 if self.kernel_mode else 0.0),
         }
 
-    def _kernel_update_phase(self, st: NAFState, ready):
-        """The warmup-gated K-update learner phase through the fused
-        Pallas kernel (ops/learner_kernel.py NAF section) — same rng
-        splits as gated_update_scan, bitwise-identical presampled
-        batches, clip_by_global_norm + Adam + Polyak in-kernel."""
-        from ..ops import learner_kernel as lk
-
-        c = self.cfg
-        # Rows per update: the GLOBAL batch (per-shard minibatches are
-        # all_gathered under shard_map — see gather_batches).
-        kb = local_batch(c.batch_size, self.num_shards) \
-            * max(self.num_shards, 1)
-        blk = min(c.learner_block, kb)
-        while kb % blk:
-            blk //= 2
-        run = lk.naf_update_phase(
-            tuple(c.hidden), self.env.obs_shape[0], c.updates_per_step,
-            kb, lr=c.lr, gamma=c.gamma, tau=c.tau,
-            max_grad_norm=c.max_grad_norm, block_size=blk,
-            interpret=jax.default_backend() != "tpu",
-            mm_precision=c.learner_precision,
-            lr_schedule=self._lr_schedule())
-        presample = replay_presample(self.replay, c.sample, c.batch_size,
-                                     self.num_shards, self.dist_axis)
-        gather = gather_batches(self.dist_axis)
-
-        def do(s):
-            rng, k = jax.random.split(s.rng)
-            s = s._replace(rng=rng)
-            keys = jax.random.split(k, c.updates_per_step)
-            batches = gather(presample(s, keys))
-            a = self._adam_state(s.opt)
-            groups = (s.params, s.target, a.mu, a.nu)
-            t0 = a.count
-            new, loss = run(groups, batches, t0)
-            opt = self._with_adam_state(
-                s.opt, t0 + jnp.int32(c.updates_per_step), new[2], new[3])
-            s = s._replace(params=new[0], target=new[1], opt=opt)
-            return s, jnp.mean(loss)
-
-        if ready is True:   # static: warmup disabled, no cond branch
-            return do(st)
-        return jax.lax.cond(ready, do, lambda s: (s, jnp.float32(0.0)),
-                            st)
-
-    def fusable(self) -> bool:
-        """Whether the Pallas mu-in-the-loop rollout covers this
-        env/config shape (ops/policy_rollout.py::naf_fusable)."""
-        from ..ops.policy_rollout import naf_fusable
-        return naf_fusable(self.env, tuple(self.cfg.hidden))
-
-    def make_train_step(self, capture: bool = False, fused=None):
+    def make_train_step(self, capture: bool = False):
         """Jitted train_step with donated state. capture=True additionally
         returns the rollout chunk in metrics["traj"] (time-major
-        (obs, action, reward, done)) for the event-log sink. fused=None
-        auto-selects the Pallas rollout kernel on TPU when the shape is
-        coverable (single-device or per-shard batches only)."""
-        return jax.jit(functools.partial(self.train_step, capture=capture,
-                                         fused=resolve_fused(self, fused)),
+        (obs, action, reward, done)) for the event-log sink."""
+        return jax.jit(functools.partial(self.train_step, capture=capture),
                        donate_argnums=(0,))
 
-    def make_train_scan(self, num_calls: int, capture: bool = False,
-                        fused=None):
+    def make_train_scan(self, num_calls: int, capture: bool = False):
         """`num_calls` train steps as ONE jitted dispatch (stacked
         metrics) — amortizes the per-call dispatch constant; see
         agents/common.py::make_train_scan."""
-        return make_train_scan(self, num_calls, capture=capture,
-                               fused=fused)
+        return make_train_scan(self, num_calls, capture=capture)

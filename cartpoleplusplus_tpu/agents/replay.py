@@ -2,10 +2,9 @@
 
 Reference counterpart: `replay_memory.py::ReplayMemory.{add,batch}` — a
 host-side numpy ring buffer of (s, a, r, s', done) with uniform minibatch
-sampling, shared by the DQN/NAF/DDPG trainers (SURVEY.md §2a; reference
-mount empty this session).
+sampling, shared by the DQN/NAF/DDPG trainers (SURVEY.md §2a).
 
-TPU-native redesign:
+Redesign:
   * The buffer is a pytree of device arrays laid out `(num_envs,
     capacity_per_env, ...)` — the env axis is the SAME axis the environment
     batch is sharded on, so under a `Mesh(('data',))` sharding each chip
@@ -70,10 +69,9 @@ class ReplayBuffer:
         # Pixel obs are stored FLAT: (B, C, H*W*ch) instead of
         # (B, C, H, W, ch). 48x48x18 = 41472 = 324 lanes exactly, so the
         # ring tiles with zero padding and XLA keeps the natural
-        # minor-to-major layout — with the 5-D shape the TPU layout
-        # assigner picked an env-minor layout (1.3x pad expansion) and
-        # inserted a full-ring relayout copy, which alone OOMed the chip
-        # at 512 pixel envs (observed: 6.75G copy of a 5.06G ring).
+        # minor-to-major layout — with the 5-D shape a layout assigner
+        # may pick an env-minor layout and insert a full-ring relayout
+        # copy, which can alone exhaust device memory at pixel scale.
         self._flat_dim = int(np.prod(self.obs_shape))
 
     def _encode_obs(self, obs):
@@ -154,11 +152,11 @@ class ReplayBuffer:
 
         aligned=True asserts the cursor-alignment invariant STATICALLY
         (callers that only ever insert fixed-length chunks: the agents,
-        whose cursor starts at 0 and always advances by t). Round-4
-        motivation: the runtime `lax.cond` between fast and slow made
-        XLA materialize TWO full-ring copies at the cond boundary every
-        train step — ~4.5 ms/step on a 1.8 GB pixel ring, dwarfing the
-        actual insert (BASELINE.md round-4 decomposition). train.py
+        whose cursor starts at 0 and always advances by t). Motivation:
+        the runtime `lax.cond` between fast and slow made XLA
+        materialize TWO full-ring copies at the cond boundary every
+        train step, dwarfing the actual insert on a multi-GB pixel
+        ring. train.py
         re-aligns the cursor at the restore boundary so a checkpoint
         taken under a different rollout length cannot violate the
         invariant.
@@ -225,16 +223,14 @@ class ReplayBuffer:
         """Column minibatch: whole ring COLUMNS (one random valid slot x
         all envs) instead of independent (env, slot) pairs.
 
-        Rationale (measured, round 2): `sample`'s per-row gather costs
-        ~0.3 us/row on TPU regardless of dtype — at production batch
-        sizes the learner becomes gather-bound (it was ~10 ms of the
-        13 ms fused train step). A column is k static dynamic-slices —
-        DMA-friendly, ~free. Statistically the batch stays diverse: the
+        Rationale: `sample`'s per-row gather cost grows with the batch
+        and at production batch sizes made the learner gather-bound. A
+        column is k static dynamic-slices — contiguous, ~free. Statistically the batch stays diverse: the
         envs are thousands of INDEPENDENT chains (decorrelated pushes
         and resets by per-env counter RNG), so a synchronized column is
         an iid sample across envs; temporal diversity comes from drawing
-        fresh slots every update. Validated: the column-sampling DDPG
-        reaches the same eval-200/200 balancing as uniform (BASELINE.md).
+        fresh slots every update. The column-sampling DDPG recipe was
+        validated to balance the pole to the cap like uniform sampling.
 
         batch_size rows are returned: ceil(batch/B) columns, trimmed at
         a random env offset when batch_size is not a multiple of B.
@@ -310,11 +306,10 @@ class ReplayBuffer:
         def fetch(buf, idx):
             """(B, K*C, ...) columns from the ring, as one op or K*C
             dynamic slices. jnp.take along the slot axis is the right
-            call for small (state) rings — one fused gather — but on
-            TPU it lowers to a windowed sweep of the ENTIRE source for
-            multi-GB pixel rings (round-4 hlo_stats: 5.2 ms/step
-            reading 1.8 GB to select 16 columns, the single largest
-            cost in pixel training). Unrolled dynamic slices read only
+            call for small (state) rings — one fused gather — but it
+            can lower to a windowed sweep of the ENTIRE source for
+            multi-GB pixel rings (reading 1.8 GB to select 16
+            columns). Unrolled dynamic slices read only
             the selected columns (~6.9 MB each) at the cost of K*C
             serial ops — the winning trade exactly when rows are fat,
             which quantize_obs marks."""
@@ -373,8 +368,8 @@ class ReplayBuffer:
         every env's inclusion probability exactly batch_size/num_envs
         (an unaligned random window would under-sample edge envs).
         Co-occurrence is restricted to fixed partitions — irrelevant
-        for mean-gradient SGD; quality validated in BASELINE.md
-        round-5 before becoming the pixel-preset default."""
+        for mean-gradient SGD; quality was validated before it became
+        the pixel-preset default."""
         b = self.num_envs
         if batch_size > b or b % batch_size:
             raise ValueError("block sampling needs batch_size | num_envs")

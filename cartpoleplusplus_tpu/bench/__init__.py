@@ -1,3 +1,3 @@
-from .harness import build_rollout, measure_env_steps_per_sec
+from .harness import build_rollout, device_info, measure_env_steps_per_sec
 
-__all__ = ["build_rollout", "measure_env_steps_per_sec"]
+__all__ = ["build_rollout", "device_info", "measure_env_steps_per_sec"]

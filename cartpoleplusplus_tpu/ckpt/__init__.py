@@ -2,14 +2,14 @@
 
 Reference counterpart: the per-trainer TensorFlow `Saver` checkpoints
 (`--ckpt-dir`, periodic save/restore) in rebcabin/cartpoleplusplus
-(SURVEY.md §5 checkpoint row; reference mount empty this session).
+(SURVEY.md §5 checkpoint row).
 
-TPU-native redesign: orbax-checkpoint over the WHOLE agent TrainState
-pytree — networks, optimizer moments, target nets, device-resident replay
-buffer, env state and PRNG keys — so a resumed run continues bit-exact,
-not just "with the same weights". Multi-host safe: orbax coordinates a
-single logical checkpoint across processes and restores with the sharding
-of a provided abstract target.
+Redesign: a plain numpy (.npz) + JSON-manifest writer over the WHOLE
+agent TrainState pytree — networks, optimizer moments, target nets,
+device-resident replay buffer, env state and PRNG keys — so a resumed
+run continues bit-exact, not just "with the same weights". Restores
+take the sharding of a provided target state, so a checkpoint moves
+between meshes.
 """
 
 from .checkpoint import CheckpointManager, restore_checkpoint, save_checkpoint

@@ -1,22 +1,44 @@
-"""Orbax-backed checkpointing of full agent training states.
+"""Checkpointing of full agent training states, with numpy and JSON only.
 
 The unit of persistence is the agent's TrainState NamedTuple (ddpg.py
-etc.) — a pure pytree of arrays, so no custom serialization is needed.
-`CheckpointManager` adds periodic-save/retention/resume bookkeeping, the
-step-level API the reference exposed via TF Saver + `--ckpt-dir`.
+etc.) — a pure pytree of arrays. One checkpoint is a directory holding
+`arrays.npz` (every leaf, keyed by its path in the tree, e.g.
+`actor/torso/layers/0/dense/kernel`) and `manifest.json` (the step,
+the top-level fields on disk, and each leaf's shape and dtype). A save
+is written to a temporary directory and renamed into place, so a reader
+never sees a half-written checkpoint. `CheckpointManager` adds the
+periodic-save / retention / resume bookkeeping the reference exposed
+via TF Saver + `--ckpt-dir`.
+
+Restores land on the TARGET's placement: each leaf is put with the
+sharding of the matching leaf of the provided state, so a checkpoint
+written on one mesh restores onto another.
+
+On a multi-process mesh (`dist.initialize_multihost`) every process
+calls save and restore together: a save gathers the leaves that span
+processes (a collective), process 0 alone writes, and all processes wait
+for the write before going on. Every process reads the checkpoint to
+restore, so the directory must be on a filesystem they share.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import shutil
 import sys
+import tempfile
 
 import jax
-import orbax.checkpoint as ocp
+import numpy as np
+
+MANIFEST = "manifest.json"
+ARRAYS = "arrays.npz"
+FORMAT_VERSION = 1
 
 
 def _to_pytree(state, exclude=()):
-    """NamedTuple -> plain nested dict (orbax-friendly, field-named).
+    """NamedTuple -> plain nested dict (field-named).
 
     exclude: top-level field names to drop — e.g. ("replay",) for
     weights-only checkpoints when the replay buffer dwarfs the network
@@ -31,65 +53,132 @@ def _to_pytree(state, exclude=()):
     return state
 
 
-def _abstract_like(tree):
-    """Restore template: ShapeDtypeStructs carrying the TARGET's
-    shardings. to_shape_dtype_struct alone drops them, which makes
-    orbax fall back to the SAVE-time shardings — unresolvable when the
-    checkpoint was written on a different backend (a TPU-saved ckpt
-    restored in a CPU process dies in deserialization with "sharding
-    ... Got None"). Passing the target's sharding per leaf is what the
-    module docstring always promised: arrays land where the target
-    lives, making restores backend- and layout-portable."""
-    def leaf(x):
-        if isinstance(x, jax.Array):
-            return jax.ShapeDtypeStruct(x.shape, x.dtype,
-                                        sharding=x.sharding)
-        # Non-device leaves (numpy arrays / Python scalars in the target)
-        # carry no sharding, so construct_restore_args returns plain
-        # RestoreArgs for them and they restore HOST-side (numpy), not as
-        # sharded jax.Arrays. All current TrainState leaves are device
-        # arrays; this branch exists for host-side targets (tests, tools)
-        # and keeps their restore semantics host-side by design.
-        return ocp.utils.to_shape_dtype_struct(x)
-    return jax.tree.map(leaf, tree)
+def _key_name(k) -> str:
+    for attr in ("key", "name", "idx"):
+        if hasattr(k, attr):
+            return str(getattr(k, attr))
+    return str(k)
 
 
-def _on_disk_fields(item_dir: str):
-    """Top-level field names actually present in a saved checkpoint.
+def _leaves_by_name(tree) -> dict:
+    """{'a/b/0/c': leaf} over every leaf of a nested container tree."""
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {"/".join(_key_name(k) for k in path): leaf
+            for path, leaf in flat}
 
-    Returns None when metadata is unreadable (then no template pruning
-    happens and restore behaves strictly, as before). Used to reconcile
-    the restore template with what the save-time `exclude` left on disk,
-    so `--eval-only` on a weights-only (`--no-ckpt-full`) checkpoint
-    works without the caller re-passing the save-time exclusion.
-    """
+
+def _storable(a: np.ndarray) -> np.ndarray:
+    """numpy's .npy format has no code for ml_dtypes (bfloat16 etc.):
+    store those as unsigned ints of the same width; the manifest keeps
+    the real dtype."""
+    if a.dtype.kind == "V" or a.dtype.type.__module__ == "ml_dtypes":
+        return a.view(np.dtype(f"uint{8 * a.dtype.itemsize}"))
+    return a
+
+
+def _host_array(leaf) -> np.ndarray:
+    """A leaf as one numpy array on this host; a leaf that spans
+    processes is gathered (a collective: every process must call)."""
+    if isinstance(leaf, jax.Array) and not leaf.is_fully_addressable:
+        from jax.experimental import multihost_utils
+        return np.asarray(multihost_utils.process_allgather(leaf, tiled=True))
+    return np.asarray(leaf)
+
+
+def _sync(tag: str) -> None:
+    """Barrier across processes (no-op in a single-process run)."""
+    if jax.process_count() > 1:
+        from jax.experimental import multihost_utils
+        multihost_utils.sync_global_devices(tag)
+
+
+def _write(path: str, state, exclude: tuple, step=None) -> None:
+    tree = _to_pytree(state, exclude)
+    arrays = {name: _host_array(leaf)
+              for name, leaf in _leaves_by_name(tree).items()}
+    if jax.process_index() == 0:
+        _write_files(os.path.abspath(path), arrays, {
+            "format": FORMAT_VERSION,
+            "step": step,
+            "fields": sorted(tree) if isinstance(tree, dict) else [],
+            "leaves": {name: {"shape": list(a.shape), "dtype": a.dtype.name}
+                       for name, a in arrays.items()},
+        })
+    _sync(f"ckpt write {path}")
+
+
+def _write_files(path: str, arrays: dict, manifest: dict) -> None:
+    parent = os.path.dirname(path)
+    os.makedirs(parent, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=".tmp-" + os.path.basename(path) + "-",
+                           dir=parent)
     try:
-        with ocp.StandardCheckpointer() as ckptr:
-            meta = ckptr.metadata(item_dir).item_metadata
-        return set(meta.keys())
-    except Exception:
-        return None
+        np.savez(os.path.join(tmp, ARRAYS),
+                 **{n: _storable(a) for n, a in arrays.items()})
+        with open(os.path.join(tmp, MANIFEST), "w") as f:
+            json.dump(manifest, f, indent=1)
+        if os.path.exists(path):   # overwrite: move the old one aside first
+            old = path + ".old"
+            shutil.rmtree(old, ignore_errors=True)
+            os.replace(path, old)
+            os.replace(tmp, path)
+            shutil.rmtree(old, ignore_errors=True)
+        else:
+            os.replace(tmp, path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _reconcile(abstract: dict, fields):
-    """Prune `abstract` (the top-level restore request) to the fields on
-    disk. Returns (request, needs_partial): needs_partial is True when
-    the checkpoint holds fields the request does not ask for (e.g. a
-    full save restored weights-only), which orbax only allows via a
-    partial restore."""
-    if fields is None:
-        return abstract, False
-    dropped = sorted(k for k in abstract if k not in fields)
+def read_manifest(path: str) -> dict:
+    with open(os.path.join(path, MANIFEST)) as f:
+        return json.load(f)
+
+
+def _place(value: np.ndarray, like):
+    """Put a restored array where the target leaf lives."""
+    if not isinstance(like, jax.Array):
+        return value
+    if like.is_fully_addressable:
+        return jax.device_put(value, like.sharding)
+    return jax.make_array_from_callback(value.shape, like.sharding,
+                                        lambda idx: value[idx])
+
+
+def _read(path: str, target, exclude: tuple = ()):
+    """Restore the on-disk fields of `target` (minus `exclude`); fields
+    missing on disk keep the target's values."""
+    manifest = read_manifest(path)
+    on_disk = set(manifest["fields"])
+    want = _to_pytree(target, exclude)
+    dropped = sorted(k for k in want if k not in on_disk)
     if dropped:
         print(f"ckpt: {', '.join(dropped)} not in checkpoint (weights-only "
               "save?); keeping fresh values", file=sys.stderr)
-    request = {k: v for k, v in abstract.items() if k in fields}
-    return request, bool(fields - set(request))
+    request = {k: v for k, v in want.items() if k in on_disk}
+    with np.load(os.path.join(path, ARRAYS)) as data:
+        def load(name, like):
+            meta = manifest["leaves"][name]
+            a = data[name]
+            dtype = np.dtype(jax.numpy.dtype(meta["dtype"]))
+            if a.dtype != dtype:
+                a = a.view(dtype)
+            shape = tuple(np.shape(like))
+            if tuple(a.shape) != shape:
+                raise ValueError(f"ckpt leaf {name}: shape {a.shape} on "
+                                 f"disk, target has {shape}")
+            return _place(a, like)
+
+        flat, treedef = jax.tree_util.tree_flatten_with_path(request)
+        leaves = [load("/".join(_key_name(k) for k in p), leaf)
+                  for p, leaf in flat]
+    restored = jax.tree_util.tree_unflatten(treedef, leaves)
+    return _merge_restored(target, restored)
 
 
 def _merge_restored(template, tree):
-    """Like _from_pytree but tolerates fields missing from `tree`
-    (excluded at save time): those keep the template's value."""
+    """Rebuild the NamedTuple structure of `template` from a plain dict;
+    fields missing from `tree` (excluded at save time) keep the
+    template's value."""
     if hasattr(template, "_asdict"):
         return type(template)(**{
             k: (_merge_restored(v, tree[k]) if k in tree else v)
@@ -97,123 +186,93 @@ def _merge_restored(template, tree):
     return tree
 
 
-def _from_pytree(template, tree):
-    """Rebuild the NamedTuple structure of `template` from a plain dict."""
-    if hasattr(template, "_asdict"):
-        return type(template)(**{
-            k: _from_pytree(v, tree[k])
-            for k, v in template._asdict().items()})
-    return tree
-
-
 def save_checkpoint(path: str, state, force: bool = True,
                     exclude: tuple = ()) -> None:
-    """Write one checkpoint to `path` (a directory)."""
-    path = os.path.abspath(path)
-    with ocp.StandardCheckpointer() as ckptr:
-        ckptr.save(path, _to_pytree(state, exclude), force=force)
+    """Write one checkpoint to `path` (a directory). An existing
+    checkpoint there is replaced only with force=True."""
+    if os.path.exists(path) and not force:
+        raise FileExistsError(path)
+    _write(path, state, tuple(exclude))
 
 
 def restore_checkpoint(path: str, target, exclude: tuple = ()):
     """Restore into the structure (and shardings) of `target` — pass the
     freshly-initialized agent state; arrays land with target's sharding,
-    which makes this multi-host / re-layout safe. Fields absent from the
-    on-disk checkpoint (a weights-only save) keep target's values;
-    `exclude` drops further fields from the request regardless."""
-    path = os.path.abspath(path)
-    abstract = _abstract_like(_to_pytree(target, exclude))
-    request, needs_partial = _reconcile(abstract, _on_disk_fields(path))
-    if needs_partial:
-        with ocp.Checkpointer(ocp.PyTreeCheckpointHandler()) as ckptr:
-            restored = ckptr.restore(
-                path, args=ocp.args.PyTreeRestore(
-                    item=request,
-                    restore_args=ocp.checkpoint_utils.
-                    construct_restore_args(request),
-                    partial_restore=True))
-    else:
-        with ocp.StandardCheckpointer() as ckptr:
-            restored = ckptr.restore(path, request)
-    return _merge_restored(target, restored)
+    which makes this re-layout safe. Fields absent from the on-disk
+    checkpoint (a weights-only save) keep target's values; `exclude`
+    drops further fields from the request regardless."""
+    return _read(os.path.abspath(path), target, tuple(exclude))
 
 
 class CheckpointManager:
-    """Periodic save / latest-resume over a checkpoint directory.
+    """Periodic save / latest-resume over a checkpoint directory
+    (`<directory>/<step>/`), keeping the newest `max_to_keep` (None or 0
+    keeps all).
 
-    Reference counterpart: the TF Saver save-every-N-steps loop. Orbax's
-    CheckpointManager handles retention, atomicity (tmp dir + rename) and
-    multi-host coordination.
+    Reference counterpart: the TF Saver save-every-N-steps loop. Saves
+    are synchronous; `wait_until_finished` and `close` exist so callers
+    need not know that.
     """
 
     def __init__(self, directory: str, save_interval_steps: int = 1,
                  max_to_keep: int = 3, exclude: tuple = ()):
+        self.directory = os.path.abspath(directory)
+        self._interval = max(int(save_interval_steps), 1)
+        self._max_to_keep = max_to_keep
         self._exclude = tuple(exclude)
-        self._mgr = ocp.CheckpointManager(
-            os.path.abspath(directory),
-            options=ocp.CheckpointManagerOptions(
-                save_interval_steps=save_interval_steps,
-                max_to_keep=max_to_keep,
-                create=True,
-            ),
-        )
+        os.makedirs(self.directory, exist_ok=True)
+
+    def all_steps(self) -> list:
+        return sorted(int(n) for n in os.listdir(self.directory)
+                      if n.isdigit() and os.path.isfile(
+                          os.path.join(self.directory, n, MANIFEST)))
+
+    def latest_step(self):
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def should_save(self, step: int) -> bool:
+        """Whether the interval policy would save at `step`: a multiple
+        of the interval, newer than the latest checkpoint."""
+        latest = self.latest_step()
+        return (step % self._interval == 0
+                and (latest is None or step > latest))
 
     def save(self, step: int, state, force: bool = False) -> bool:
         """Save if the interval policy says so; returns whether saved.
 
-        force=True bypasses orbax's own step-modulo re-check — REQUIRED
-        when the caller's save cadence is windowed (train.py's chunked
-        dispatch lands on step indices like 511, 1007 that satisfy the
-        caller's interval window but not `step % interval == 0`; orbax
-        silently skips those, which left long chunked-dispatch runs
-        with a single early checkpoint — round-3 hardware bug)."""
-        saved = self._mgr.save(
-            step, args=ocp.args.StandardSave(
-                _to_pytree(state, self._exclude)), force=force)
-        return bool(saved)
-
-    def should_save(self, step: int) -> bool:
-        """Whether the interval policy would save at `step` — lets the
-        caller skip state-layout conversion work on non-saving calls."""
-        return bool(self._mgr.should_save(step))
-
-    def latest_step(self):
-        return self._mgr.latest_step()
+        force=True bypasses the policy — REQUIRED when the caller's save
+        cadence is windowed (train.py's chunked dispatch lands on step
+        indices like 511, 1007 that satisfy the caller's interval window
+        but not `step % interval == 0`)."""
+        if not force and not self.should_save(step):
+            return False
+        _write(os.path.join(self.directory, str(step)), state,
+               self._exclude, step=step)
+        if self._max_to_keep and jax.process_index() == 0:
+            for old in self.all_steps()[:-self._max_to_keep]:
+                shutil.rmtree(os.path.join(self.directory, str(old)),
+                              ignore_errors=True)
+        _sync(f"ckpt retention {self.directory} {step}")
+        return True
 
     def restore(self, target, step: int | None = None):
         """Restore `step` (default: latest) into `target`'s structure.
 
         Adapts to the checkpoint's save-time exclusion: fields missing
         on disk keep `target`'s values (so `--eval-only` works on a
-        weights-only save without re-passing `--no-ckpt-full`), and a
-        full save restored with an exclusion uses a partial restore."""
-        step = self._mgr.latest_step() if step is None else step
+        weights-only save without re-passing `--no-ckpt-full`)."""
+        step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError("no checkpoint to restore")
-        abstract = _abstract_like(_to_pytree(target, self._exclude))
-        # Single-item CheckpointManager saves live under <dir>/<step>/default.
-        item_dir = os.path.join(str(self._mgr.directory), str(step),
-                                "default")
-        if not os.path.isdir(item_dir):
-            item_dir = os.path.join(str(self._mgr.directory), str(step))
-        request, needs_partial = _reconcile(abstract,
-                                            _on_disk_fields(item_dir))
-        if needs_partial:
-            restored = self._mgr.restore(
-                step, args=ocp.args.PyTreeRestore(
-                    item=request,
-                    restore_args=ocp.checkpoint_utils.
-                    construct_restore_args(request),
-                    partial_restore=True))
-        else:
-            restored = self._mgr.restore(
-                step, args=ocp.args.StandardRestore(request))
-        return _merge_restored(target, restored)
+        return _read(os.path.join(self.directory, str(step)), target,
+                     self._exclude)
 
     def wait_until_finished(self):
-        self._mgr.wait_until_finished()
+        pass
 
     def close(self):
-        self._mgr.close()
+        pass
 
     def __enter__(self):
         return self

@@ -3,7 +3,7 @@
 Reference counterpart: the argparse option system of
 rebcabin/cartpoleplusplus — each module contributes `add_opts(parser)` and
 the opts object threads through constructors (SURVEY.md §1 L4, §5 config
-row; reference mount empty this session).
+row).
 
 Redesign: configuration is a tree of frozen dataclasses (physics/env
 params in physics/params.py, agent configs in agents/*.py, run settings
@@ -38,11 +38,10 @@ class RunConfig:
 
     agent: str = "ddpg"              # ddpg | dqn | naf | lrpg | random
     # "" (agent defaults = the QUALITY recipes), "fast", or "pixels":
-    # lift unset run/agent fields to a measured recipe (train.py
-    # _PRESETS; explicitly-typed flags always win). fast = ~50M
-    # env-steps/s sustained with >=178 eval on 3 of 4 seeds; pixels =
-    # the pixel-learning winner (grayscale uint8, 120k steps, restored
-    # eval 192.7/195.5 — BASELINE.md round-3 tables).
+    # lift unset run/agent fields to a tuned recipe (train.py
+    # _PRESETS; explicitly-typed flags always win). fast = the
+    # throughput cadences with an end-of-budget canary; pixels = the
+    # pixel-learning recipe (grayscale uint8 frames, frame-diff).
     preset: str = ""
     num_envs: int = 4096
     obs_mode: str = "pose_stack"     # pose_stack | state | pixels
@@ -78,15 +77,13 @@ class RunConfig:
     eval_steps: int = 400            # env-steps per eval run
     eval_render: str = ""            # with --eval-only: dump frames of env 0 here
     profile_dir: str = ""            # empty = no profiler trace
-    # Collapse-detection canary (round 4): at `canary_env_steps` per-env
+    # Collapse-detection canary: at `canary_env_steps` per-env
     # steps, run a deterministic eval; if mean episode length <
     # `canary_min_eval`, RESTART training from a re-seeded init (seed +
     # 1000 per attempt, up to `canary_max_restarts`). Motivation: the
     # high-throughput cadences sit near a mediocre attractor that
-    # catches ~1 in 4 seeds (measured: every static knob that rescued
-    # one seed sank another — BASELINE.md round-4 sweep); a cheap early
-    # eval + random restart is the robust fix, and the canary fires at
-    # ~25% of budget so a restart costs little. 0 = off.
+    # catches ~1 in 4 seeds (every static knob that rescued one seed
+    # sank another); an eval + random restart is the robust fix. 0 = off.
     canary_env_steps: int = 0
     canary_min_eval: float = 100.0
     canary_max_restarts: int = 2

@@ -2,21 +2,21 @@
 
 Reference counterpart: NONE — rebcabin/cartpoleplusplus is a single-process
 single-host program with no parallelism or communication backend of any
-kind (SURVEY.md §1 distributed row, §5; reference mount empty this
-session). This layer is the NEW capability required by BASELINE config 5:
-"8192 envs sharded over 2+ hosts feeding an on-device DDPG-style
-actor-learner via collectives" (/root/repo/BASELINE.json:11).
+kind (SURVEY.md §1 distributed row, §5). This layer is the NEW capability
+required by BASELINE config 5: "8192 envs sharded over 2+ hosts feeding
+an on-device DDPG-style actor-learner via collectives" (BASELINE.json:11).
 
-The TPU-native communication backend is XLA collectives over ICI
-(intra-slice) and DCN (inter-slice) — psum/all-gather inserted by the SPMD
-partitioner from sharding annotations; `jax.distributed.initialize` is the
-multi-host runtime. There is no NCCL/MPI equivalent to wrap: the mesh +
-NamedSharding layout IS the backend.
+The communication backend is XLA collectives, which XLA lowers to NCCL
+over NVLink between the GPUs of a host — psum/all-gather inserted by the
+SPMD partitioner from sharding annotations, or written explicitly under
+shard_map; `jax.distributed.initialize` is the multi-host runtime. There
+is nothing to wrap by hand: the mesh + NamedSharding layout IS the
+backend.
 
 Parallelism taxonomy for this workload (documented non-goals, SURVEY.md
 §2b): the only axis that exists is the env batch -> pure data parallelism.
 TP/PP/SP/EP/CP/ring-attention are inapplicable — the models are ~100k-param
-MLPs (replicated far below a single chip's HBM) and the only sequence axis
+MLPs (replicated far below a single device's memory) and the only sequence axis
 is rollout time, which is sequential by definition (lax.scan).
 """
 

@@ -4,12 +4,13 @@ The layout recipe (scaling-book style): pick a mesh, annotate shardings on
 program inputs, let the SPMD partitioner insert collectives, profile.
 For this workload one named axis suffices:
 
-  * 'data' — all chips of all hosts. Env state, observations, replay
-    buffers and OU-noise shard on their leading (num_envs) axis; network
-    params and optimizer states are replicated. The learner minibatch
-    gradient then needs exactly one psum per update (inserted by XLA when
-    a replicated output is computed from sharded inputs), which rides ICI
-    within a slice and DCN across slices.
+  * 'data' — all devices of all hosts, flat. Env state, observations,
+    replay buffers and OU-noise shard on their leading (num_envs) axis;
+    network params and optimizer states are replicated. The learner
+    minibatch gradient then needs exactly one psum per update (inserted
+    by XLA when a replicated output is computed from sharded inputs),
+    which XLA hands to NCCL. NVLink joins the GPUs of a host all to
+    all, so the mesh follows the algorithm alone: one flat axis.
 
 Multi-host determinism: per-env PRNG seeds are a pure function of the
 GLOBAL env index (env/cartpole.py::derive_env_seeds), so trajectories are
@@ -30,9 +31,10 @@ def initialize_multihost(coordinator_address: str | None = None,
                          process_id: int | None = None) -> None:
     """Bring up the multi-host runtime (one JAX process per host).
 
-    Thin wrapper over `jax.distributed.initialize`: on TPU pods the three
-    arguments are discovered from the environment automatically. Safe to
-    skip entirely for single-process runs.
+    Thin wrapper over `jax.distributed.initialize`. Without a cluster
+    manager the three arguments must be given (coordinator
+    `host:port`, process count, this process's id). Skip it entirely
+    for single-process runs, which drive every local GPU.
     """
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,

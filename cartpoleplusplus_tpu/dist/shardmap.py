@@ -1,8 +1,8 @@
-"""shard_map actor-learner: chip-local replay sampling, one pmean.
+"""shard_map actor-learner: device-local replay sampling, one pmean.
 
 The plain-jit distributed path (dist/train.py) lets the SPMD partitioner
 place every op — correct, but the learner's uniform replay sampling
-gathers minibatch rows across chips each update. This module expresses
+gathers minibatch rows across devices each update. This module expresses
 the intended communication pattern explicitly with `shard_map`:
 
   * each shard rolls out ITS envs and inserts into ITS replay shard
@@ -11,8 +11,8 @@ the intended communication pattern explicitly with `shard_map`:
     (decorrelated per-shard PRNG via axis_index),
   * the only collectives are the per-update gradient/loss `pmean`s
     (two for DDPG's actor+critic, one for DQN/NAF) plus one metrics
-    pmean per train step — all-reduces that ride ICI in-slice and DCN
-    across slices. Rollout and replay traffic is zero.
+    pmean per train step — all-reduces that XLA hands to NCCL over
+    NVLink. Rollout and replay traffic is zero.
 
 Parameter updates stay identical across shards because every shard
 applies the same pmean'd gradient with the same replicated optimizer
@@ -69,25 +69,14 @@ def state_partition_specs(state, mesh):
 
 
 def _shard_setup(local_agent, mesh, state_template):
-    """Shared validation + spec/fusion resolution for the shard_map
-    entry points: returns (partition specs for the state, train_step
-    kwargs)."""
+    """Shared validation for the shard_map entry points: returns the
+    partition specs for the state."""
     if local_agent.dist_axis != DATA_AXIS:
         raise ValueError("local_agent must be built with dist_axis='data'")
     if local_agent.num_shards != mesh.size:
         raise ValueError(f"local_agent.num_shards={local_agent.num_shards} "
                          f"!= mesh.size={mesh.size}")
-    specs = state_partition_specs(state_template, mesh)
-    # Per-shard fused Pallas rollout: inside shard_map the kernel sees
-    # only this chip's envs, so fusion applies whenever the PER-SHARD
-    # batch is lane-aligned (DDPG only; other agents take the scan).
-    import inspect
-
-    fused = (jax.default_backend() == "tpu"
-             and "fused" in inspect.signature(
-                 local_agent.train_step).parameters
-             and getattr(local_agent, "fusable", lambda: False)())
-    return specs, ({"fused": True} if fused else {})
+    return state_partition_specs(state_template, mesh)
 
 
 def make_shardmap_evaluate(local_agent, mesh, state_template,
@@ -104,12 +93,11 @@ def make_shardmap_evaluate(local_agent, mesh, state_template,
         index_offset = axis_index * local_num_envs, so per-env pushes
         key on the GLOBAL env index (the layout-independence invariant,
         tests/test_dist.py) and the episode set matches the global run;
-      * layout — the policy comes from the LOCAL agent, whose state
-        layout (canonical tree or kernel-flat) matches the training
-        state, so kernel-mode runs evaluate without a relayout.
+      * the policy comes from the LOCAL agent, which reads the
+        replicated params of the training state directly.
     Integer episode stats match the unsharded eval exactly; reward_mean
     to fp summation order."""
-    specs, _ = _shard_setup(local_agent, mesh, state_template)
+    specs = _shard_setup(local_agent, mesh, state_template)
     local_b = local_agent.env.num_envs
 
     def ev(state):
@@ -141,11 +129,10 @@ def make_shardmap_train_step(local_agent, mesh, state_template,
     (None, 'data') out_specs — the event-log sink then sees the same
     global layout the SPMD path produces.
     """
-    specs, kw = _shard_setup(local_agent, mesh, state_template)
+    specs = _shard_setup(local_agent, mesh, state_template)
 
     def step(state):
-        state, metrics = local_agent.train_step(state, capture=capture,
-                                                **kw)
+        state, metrics = local_agent.train_step(state, capture=capture)
         # Split the (per-shard, batch-sharded) trajectory from the
         # (replicated) scalar metrics: they need different out_specs.
         traj = metrics.pop("traj") if capture else None
@@ -179,17 +166,17 @@ def make_shardmap_train_scan(local_agent, mesh, num_calls: int,
     metrics, metrics["traj"][k] = rollout chunk k when capture=True).
 
     The `lax.scan` runs INSIDE the shard_map body, so per-shard rollout
-    and replay stay chip-local across all K train steps and the only
+    and replay stay device-local across all K train steps and the only
     collectives remain the per-update gradient pmeans (+ one metrics
     pmean per step) — chunking changes the dispatch count, not the
     communication pattern. Trajectories gain a leading scan axis, so
     their out_specs shard axis 2 (the env batch) instead of axis 1.
     """
-    specs, kw = _shard_setup(local_agent, mesh, state_template)
+    specs = _shard_setup(local_agent, mesh, state_template)
 
     def body(state):
         def one(c, _):
-            c, m = local_agent.train_step(c, capture=capture, **kw)
+            c, m = local_agent.train_step(c, capture=capture)
             traj = m.pop("traj") if capture else None
             return c, (m, traj)
 

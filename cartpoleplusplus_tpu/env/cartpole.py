@@ -5,17 +5,16 @@ rebcabin/cartpoleplusplus — action mapping (discrete 5-way noop/+x/-x/+y/-y
 or continuous (fx, fy)), action-repeat with several physics substeps per
 repeat, random push perturbations, pose-stack observations in lieu of
 velocities, tilt/position/length termination, +1-or-shaped reward, and
-per-episode reset (mechanics per /root/repo/BASELINE.json:5-12; the
-reference mount was empty this session).
+per-episode reset (mechanics per BASELINE.json:5-12).
 
-TPU-native redesign (NOT a port):
+Redesign (NOT a port):
   * the batch axis is built into every array — there is no per-env object,
     no Python in the hot path; `step` is one pure jittable function;
   * per-episode Python `reset()` becomes masked auto-reset
     (`tree.map(where(done, ...))`) inside the same jitted step;
   * the ~15 Python<->C++ pybullet crossings per env-step become zero:
     action map, substeps, pushes, obs assembly, termination, reward and
-    reset fuse into one XLA program (and one Pallas kernel in ops/);
+    reset fuse into one XLA program (and one GPU kernel in ops/);
   * randomness is a pure function of (per-env key, episode step), with
     per-env keys derived from the global env index — results are identical
     under any sharding layout (multi-host determinism).
@@ -168,9 +167,6 @@ class CartPole3D:
         self.auto_reset = auto_reset
         self.render_config = (render_config if render_config is not None
                               else RenderConfig())
-        # Test hook: force the whole-obs render kernel (interpret mode)
-        # off-TPU so the kernel/XLA obs pipelines can be compared on CPU.
-        self._obs_kernel_interpret = False
 
     # --- spaces ------------------------------------------------------------
     @property
@@ -202,16 +198,10 @@ class CartPole3D:
 
     def render(self, phys: PhysState) -> jax.Array:
         """All-camera view of the current physical state:
-        (B, H, W, 3 * num_cameras) float32 in [0, 1]. The TPU-native
-        counterpart of pybullet.getCameraImage. On TPU with kernel-
-        coverable shapes the Pallas raycast kernel runs (single VMEM
-        pass, ops/render_kernel.py); elsewhere the XLA twin — both call
-        the same env/pixels.py::shade_components math."""
-        if jax.default_backend() == "tpu":
-            from ..ops.render_kernel import pallas_render_all, renderable
-            if renderable(self.render_config, self.num_envs):
-                return pallas_render_all(self.params, self.render_config,
-                                         self.num_envs)(phys)
+        (B, H, W, 3 * num_cameras) float32 in [0, 1] (one plane per
+        camera when grayscale). The batched counterpart of
+        pybullet.getCameraImage: the analytic raycaster of
+        env/pixels.py, which XLA fuses into one elementwise kernel."""
         return render_all_cameras(self.params, phys, self.render_config)
 
     # --- episode API ---------------------------------------------------------
@@ -287,51 +277,14 @@ class CartPole3D:
             frame = pose_frame(self.params, phys)
         return stack_obs([frame] * self.params.action_repeats)
 
-    def _obs_kernel(self):
-        """The batched-repeat frames kernel for this env shape, or None.
-
-        All R repeat frames render per camera in ONE pallas_call
-        (repeats stacked as virtual envs — ops/render_kernel.py::
-        pallas_render_frames), replacing the 2R dispatches of the
-        per-repeat render loop; the frame-diff/quantize/stack epilogue
-        reuses this class's existing assembly code on the returned
-        frames, so the obs stream is the XLA pipeline's by
-        construction."""
-        if self.obs_mode != "pixels":
-            return None
-        import os
-        # OFF by default: the dispatch merge was a measured NEGATIVE on
-        # hardware (three designs, all ~10% below the per-repeat render
-        # loop at the 570k config — the XLA epilogue loses the fusion/
-        # layout choices it makes around the interleaved renders;
-        # BASELINE.md round-5, docs/design.md §17). Kept as an opt-in
-        # (CARTPOLE_OBS_KERNEL=1) and for the interpret-mode parity
-        # tests that pin the kernel as a correct twin.
-        if os.environ.get("CARTPOLE_OBS_KERNEL", "0") != "1":
-            interp_only = self._obs_kernel_interpret
-            if not interp_only:
-                return None
-        interp = self._obs_kernel_interpret
-        if not interp and jax.default_backend() != "tpu":
-            return None
-        from ..ops.render_kernel import (obs_renderable,
-                                         pallas_render_frames)
-        if not obs_renderable(self.params, self.render_config,
-                              self.num_envs):
-            return None
-        return pallas_render_frames(self.params, self.render_config,
-                                    self.num_envs, interpret=interp)
-
     def step(self, state: EnvState, action):
         """One env-step: R action-repeats x S physics substeps, pose
         snapshot per repeat, termination, reward, masked auto-reset."""
         p = self.params
         force = _map_action(p, action)
         phys = state.phys
-        obs_kernel = self._obs_kernel()
 
         frames = []
-        snaps = []
         for r in range(p.action_repeats):
             if p.push_prob_per_repeat > 0.0:
                 push = push_randomness(p, state.env_seed, state.episode,
@@ -342,26 +295,11 @@ class CartPole3D:
             if self.obs_mode == "pose_stack":
                 frames.append(pose_frame(p, phys))
             elif self.obs_mode == "pixels":
-                if obs_kernel is not None:
-                    # Defer rendering: the fused obs kernel consumes the
-                    # R phys snapshots after the repeat loop.
-                    snaps.append(phys)
-                else:
-                    # frame_diff needs FLOAT frames (diffs precede uint8
-                    # quantization — _stack_diff_obs quantizes after).
-                    frames.append(self.render(phys)
-                                  if self.render_config.frame_diff
-                                  else self._obs_frame(phys))
-
-        if self.obs_mode == "pixels" and obs_kernel is not None:
-            # Kernel-rendered float frames feed the SAME assembly code
-            # as the per-repeat loop (quantize here for the raw-stack
-            # path — _stack_diff_obs quantizes after differencing).
-            frames = obs_kernel(snaps)
-            if (self.render_config.obs_uint8
-                    and not self.render_config.frame_diff):
-                frames = [jnp.clip(f * 255.0 + 0.5, 0.0, 255.0).astype(
-                    jnp.uint8) for f in frames]
+                # frame_diff needs FLOAT frames (diffs precede uint8
+                # quantization — _stack_diff_obs quantizes after).
+                frames.append(self.render(phys)
+                              if self.render_config.frame_diff
+                              else self._obs_frame(phys))
 
         steps = state.steps + 1
         tilted, oob, too_long = _termination(p, phys, steps)

@@ -1,18 +1,18 @@
 """Componentwise env math — THE single source shared by the XLA env path
-and the Pallas kernel.
+and the fused rollout kernel.
 
 Every function here operates on same-shaped component arrays (scalars,
-(B,) vectors or (rows, 128) VMEM tiles) using only elementwise jnp ops, so
-the identical expressions serve three consumers:
+(B,) vectors or per-program env blocks) using only elementwise jnp ops,
+so the identical expressions serve three consumers:
   * env/cartpole.py (stacks components into pytrees/observations),
-  * ops/fused_rollout.py (keeps components as VMEM tiles in-kernel),
+  * ops/fused_rollout.py (keeps components in registers in-kernel),
   * tests/oracle.py's numpy mirror (same formulas, float64 loop).
 Keeping reset / push / observation / termination / reward logic in ONE
 module is what makes "kernel == env.step" a structural property rather
 than a test-enforced coincidence (tests/test_ops.py still enforces it).
 
-Pallas constraints: constants must be numpy scalars (no captured device
-arrays) and no uint32->float casts (utils/prng.py handles the hop).
+Kernel constraint: constants must be numpy scalars (a Pallas kernel may
+not capture device arrays).
 """
 
 from __future__ import annotations

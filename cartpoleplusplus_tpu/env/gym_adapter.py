@@ -73,7 +73,7 @@ class Box:
 
 
 class GymCartPole3D:
-    """The reference's env class shape over the batched TPU env."""
+    """The reference's env class shape over the batched device env."""
 
     metadata = {"render.modes": ["rgb_array"]}
 

@@ -3,14 +3,15 @@
 Reference counterpart: `pybullet.getCameraImage` (Bullet's TinyRenderer, a
 C++ software rasterizer) used by `bullet_cartpole.py` for the
 pixel-observation variant: small RGB frames from 1-2 fixed cameras, stacked
-over the action-repeat window (SURVEY.md §2a; BASELINE config 4
-"/root/repo/BASELINE.json:10"; reference mount empty this session).
+over the action-repeat window (SURVEY.md §2a; BASELINE config 4,
+BASELINE.json:10).
 
-TPU-native redesign: rasterizing triangle meshes is hostile to SIMD
-batching (per-primitive loops, z-buffer scatter). The scene here is three
+Redesign: rasterizing triangle meshes is hostile to SIMD batching
+(per-primitive loops, z-buffer scatter). The scene here is three
 analytic primitives (ground plane, cart box, pole capsule), so a branch-
-free per-pixel RAY CAST is both simpler and a perfect fit for the VPU: one
-fused elementwise program over (envs x H x W) rays, no scatter, no
+free per-pixel RAY CAST is both simpler and a perfect fit for a wide
+vector machine: one fused elementwise program over (envs x H x W) rays,
+which XLA emits as one GPU loop fusion — no scatter, no
 data-dependent control flow. Camera rays are compile-time constants
 (cameras are fixed); per-env work is just two ray-primitive intersections
 and a Lambert shade.
@@ -19,7 +20,6 @@ and a Lambert shade.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import jax
 import jax.numpy as jnp
@@ -57,8 +57,8 @@ class RenderConfig:
     # Visual sizes (match the physics footprint; purely cosmetic beyond it).
     cart_half_extents: tuple = (0.25, 0.25, 0.1)
     pole_radius: float = 0.06
-    # Ray-cast compute dtype: "bfloat16" doubles VPU throughput (the
-    # renderer is VPU-bound at ~200 flops/pixel); outputs stay f32 in
+    # Ray-cast compute dtype: "bfloat16" halves the elementwise work's
+    # register and memory width (~200 flops/pixel); outputs stay f32 in
     # [0, 1] either way. bf16's ~3 significant digits are ample for a
     # 48x48 conv-net observation (and the frames are replayed as uint8).
     dtype: str = "float32"
@@ -80,7 +80,7 @@ class RenderConfig:
     # Contrast gain on the diff planes (encode = clip(0.5 + 0.5*gain*d)):
     # inter-repeat motion at 48x48 is 1-2 px, so raw diffs occupy a
     # handful of uint8 levels around 128 — the measured cause of the
-    # gain-1 A/B regression (BASELINE.md round-3). gain 4-8 spends the
+    # gain-1 A/B regression (docs/design.md §4). gain 4-8 spends the
     # 8-bit range on the amplitudes that actually occur (clipping the
     # rare saturated pixel) instead of the +/-1 worst case.
     frame_diff_gain: float = 1.0
@@ -90,8 +90,7 @@ class RenderConfig:
         return 1 if self.grayscale else 3
 
 
-# Scene constants shared by the jnp path and the Pallas render kernel
-# (ops/render_kernel.py). numpy scalars so kernels capture no device
+# Scene constants. numpy scalars, folded into the program as compile-time
 # constants (same rule as env/compute.py).
 _LIGHT = (0.4, -0.3, 0.85)
 _CART_COL = (0.85, 0.25, 0.2)
@@ -106,35 +105,10 @@ def _light_np():
     return tuple(np.float32(v) for v in (l / np.sqrt((l * l).sum())))
 
 
-def camera_basis_np(cam: CameraConfig, width: int, height: int):
-    """Orthonormal camera basis + tangent scales as np.float32 scalars:
-    (eye(3), fwd(3), right(3), up(3), tan_r, tan_u) with the SAME
-    conventions as ray_constants_np: d = fwd + xs*tan_r*right +
-    ys*tan_u*up, xs in [-1,1] across width, ys = 1-(row+0.5)/H*2.
-    Used by the render kernel's conservative screen-row body bounds."""
-    import math as m
-
-    import numpy as np
-
-    eye = np.asarray(cam.eye, np.float32)
-    fwd = np.asarray(cam.target, np.float32) - eye
-    fwd = fwd / np.linalg.norm(fwd)
-    right = np.cross(fwd, np.asarray(cam.up, np.float32))
-    right = right / np.linalg.norm(right)
-    up = np.cross(right, fwd)
-    tan_r = np.float32(m.tan(m.radians(cam.fov_deg) / 2.0))
-    tan_u = np.float32(tan_r * height / width)
-    return (tuple(np.float32(v) for v in eye),
-            tuple(np.float32(v) for v in fwd),
-            tuple(np.float32(v) for v in right),
-            tuple(np.float32(v) for v in up),
-            tan_r, tan_u)
-
-
 def ray_constants_np(cam: CameraConfig, width: int, height: int):
     """Numpy mirror of camera_rays, flattened: ((ex, ey, ez),
     (dx, dy, dz), (inv_dx, inv_dy, inv_dz)) with d*/inv_* of shape
-    (1, H*W) f32. Static per camera — kernel operands, not traced."""
+    (1, H*W) f32. Static per camera — compile-time constants, not traced."""
     import math as m
 
     import numpy as np
@@ -167,7 +141,7 @@ def static_rows_np(cam: CameraConfig, cfg: RenderConfig, gray: bool):
     static, so everything that depends only on them is a pure function
     of the pixel index — precomputed here (numpy, f32 throughout) and
     fed to the shade as constant (1, H*W) rows instead of being
-    recomputed per env per frame on the VPU. Rows, in order:
+    recomputed per env per frame. Rows, in order:
 
       t_g            ground hit distance (_BIG at miss) — deletes the
                      plane test + checkerboard floor/mod chain;
@@ -215,15 +189,14 @@ def shade_components(p: CartPoleParams, cfg: RenderConfig, eye,
                      cx, cy, cz, ux, uy, uz, gray: bool = False):
     """The full per-pixel raycast + Lambert shade, all-elementwise.
 
-    Single math source for the XLA path and the Pallas kernel
-    (ops/render_kernel.py) — the env/compute.py pattern applied to
-    rendering. Ray components (dx, dy, dz) and their reciprocals
-    broadcast against env components (cx..uz); every op is elementwise
-    on the broadcast shape (the VPU's native form; no (..., 3) vectors,
-    no stack/argmin). Everything state-independent — ground hit + sky
+    The env/compute.py pattern applied to rendering. Ray components
+    (dx, dy, dz) and their reciprocals broadcast against env components
+    (cx..uz); every op is elementwise on the broadcast shape (no
+    (..., 3) vectors, no stack/argmin), so XLA fuses the whole shade
+    into one kernel. Everything state-independent — ground hit + sky
     background, sign-folded slab half-widths, cart face-normal Lambert
     rows — arrives precomputed in `static` (static_rows_np): only the
-    two moving bodies cost per-env VPU work.
+    two moving bodies cost per-env work.
     Returns (r, g, b) in [0, 1], or a single luminance plane when
     `gray` (the grayscale fast path: compositing mean-color constants
     once instead of three channels — identical to averaging the
@@ -234,8 +207,7 @@ def shade_components(p: CartPoleParams, cfg: RenderConfig, eye,
 
     f = np.float32
     one = f(1.0)
-    # eye components may be np scalars (one camera) or (1, npx) rows
-    # (the render kernel concatenates cameras on the pixel axis).
+    # eye components are np scalars (one camera) or (1, npx) rows.
     ex, ey, ez = eye
     lx, ly, lz = _light_np()
     big = f(_BIG)
@@ -356,9 +328,9 @@ def render(p: CartPoleParams, phys: PhysState, cfg: RenderConfig,
     ((B, H, W, 1) luminance when `gray`).
 
     Thin broadcast wrapper over `shade_components` (the single math
-    source, shared with the Pallas render kernel ops/render_kernel.py):
-    env components as (B, 1) columns against (1, H*W) ray-constant rows,
-    one fused elementwise VPU program, reshaped to images at the end."""
+    source): env components as (B, 1) columns against (1, H*W)
+    ray-constant rows, one fused elementwise program, reshaped to
+    images at the end."""
     dt = jnp.bfloat16 if cfg.dtype == "bfloat16" else jnp.float32
     eye, dcomp, icomp = ray_constants_np(cam, cfg.width, cfg.height)
     rays = [jnp.asarray(c, dt) for c in dcomp + icomp]  # (1, HW) each

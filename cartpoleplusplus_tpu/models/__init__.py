@@ -1,4 +1,4 @@
-"""Network modules (flax) for the agents.
+"""Network definitions (plain jax.numpy) for the agents.
 
 Reference counterpart: the per-trainer TensorFlow graph builders in
 rebcabin/cartpoleplusplus — `base_network.py` (shared conv/MLP/batch-norm
@@ -7,9 +7,10 @@ helpers + target-network var copying) and the actor/critic/Q/NAF graphs in
 `lrpg_cartpole.py` (reference mount empty this session; inventory per
 SURVEY.md §2a).
 
-TPU-native redesign: flax modules with explicit parameter pytrees; bf16
-compute / fp32 params; target networks are plain pytree copies updated by
-`polyak` (a one-line tree_map, not graph-variable surgery).
+Redesign: each net is a frozen dataclass with init/apply over an
+explicit parameter pytree; bf16 compute / fp32 params; target networks
+are plain pytree copies updated by `polyak` (a one-line tree_map, not
+graph-variable surgery).
 """
 
 from .nets import (

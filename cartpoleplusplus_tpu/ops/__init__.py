@@ -1,26 +1,26 @@
-"""Hot-path kernels. `best_rollout` picks the fastest available
-implementation for the current backend: the Pallas fused-VMEM kernel on
-TPU (ops/fused_rollout.py — the native equivalent of Bullet's C++
-`stepSimulation` loop), the XLA scan over env.step elsewhere. The jnp
-path is the always-on correctness twin (tests/test_ops.py asserts state
-parity between the two)."""
+"""Hot-path kernels. `best_rollout` picks the env rollout for the current
+backend: on a GPU the fused Triton kernel (ops/fused_rollout.py — the
+native equivalent of Bullet's C++ `stepSimulation` loop), elsewhere the
+XLA scan over env.step. The jnp path is the always-on correctness twin
+(tests/test_ops.py asserts state parity between the two)."""
 
 import jax
 
 from .fused_rollout import pallas_rollout, reference_rollout
 
 
+def kernel_covers(env) -> bool:
+    """Whether the fused kernel implements this env's step: it hard-codes
+    pose-stack observations and masked auto-reset."""
+    return env.obs_mode == "pose_stack" and env.auto_reset
+
+
 def best_rollout(env, num_steps: int):
     """Returns (jitted rollout fn state->(state, checksum), impl name)."""
-    if (jax.default_backend() == "tpu"
-            and env.num_envs % 1024 == 0
-            and env.obs_mode == "pose_stack"
-            and env.auto_reset):  # the kernel hard-codes masked auto-reset
-        try:
-            return pallas_rollout(env, num_steps), "pallas_fused"
-        except Exception:  # pragma: no cover - fall back on lowering issues
-            pass
+    if jax.default_backend() == "gpu" and kernel_covers(env):
+        return pallas_rollout(env, num_steps), "triton_fused"
     return reference_rollout(env, num_steps), "xla_scan"
 
 
-__all__ = ["best_rollout", "pallas_rollout", "reference_rollout"]
+__all__ = ["best_rollout", "kernel_covers", "pallas_rollout",
+           "reference_rollout"]

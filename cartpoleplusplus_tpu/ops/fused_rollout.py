@@ -1,25 +1,31 @@
-"""Pallas TPU kernel: the ENTIRE rollout loop resident in VMEM.
+"""Fused env rollout: T env-steps in one GPU kernel (Pallas through Triton).
 
 Reference counterpart: Bullet's C++ `stepSimulation` inner loop — the
-reference's native hot path (SURVEY.md §2 judge-facing note; BASELINE.json:5).
-This kernel is its TPU-native equivalent: T env-steps x R repeats x S
-semi-implicit-Euler substeps, action mapping, pose-frame observation
-assembly, termination/reward and masked auto-reset — one `pallas_call`, the
-full 4096-env state held in VMEM registers/tiles across ALL steps (~650 kB),
-zero HBM traffic until the final write-back.
+reference's native hot path (SURVEY.md §2). One `pallas_call` runs T
+env-steps x R action repeats x S semi-implicit-Euler substeps, the
+benchmark action map, pose-frame observation assembly,
+termination/reward and masked auto-reset, with each env's 13-scalar
+state held in registers for the whole window.
 
-Shared math: the kernel body reuses the exact componentwise functions of
-physics/dynamics.py and utils/prng.py (pure jnp elementwise — legal inside
-Pallas), so the kernel and the XLA-scan path are the same numerics by
-construction; tests/test_ops.py asserts bitwise-level state parity.
+Layout: envs have no coupling, so the grid is one program per block of
+128 envs (a power of two, as Triton requires), with one env per thread
+(4 warps): the per-env step is a long dependent chain. On an H100, 32-,
+64- and 128-env blocks at one env per thread timed within 2% of each
+other, and two or more envs per thread were slower. Blocks run
+in no order on the card's SMs, so nothing is carried between them: each
+program loops over the T steps itself (`lax.fori_loop`) and writes its
+envs' final state plus a per-env checksum column, which the wrapper
+sums. A batch that is not a block multiple is padded to one; the
+padded lanes run on a zero state and are sliced off before the sum.
 
-Layout: the (B,) env axis reshapes to (B//128, 128) f32 tiles (VPU lanes).
-B must be a multiple of 1024 (8 sublanes x 128 lanes); callers fall back to
-the XLA scan path otherwise (ops/__init__.py::best_rollout).
+Shared math: the kernel body calls the componentwise functions of
+physics/dynamics.py, env/compute.py and utils/prng.py, so the kernel
+and the XLA scan over env.step (`reference_rollout`) are the same
+numerics by construction; tests/test_ops.py checks state parity in
+interpret mode and chip_smoke.py on the card.
 
 The benchmark action stream is a counter-PRNG function of
-(env_seed, global step) — identical in the kernel and the jnp twin
-(`reference_rollout`), making cross-implementation parity testable.
+(env_seed, global step) — identical in the kernel and its twins.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from ..env.cartpole import EnvState
 from ..env.compute import (
@@ -45,9 +51,10 @@ from ..physics.dynamics import substep_components
 from ..utils.prng import hash_words, uniform
 
 _TAG_BENCH_ACTION = 0x31
+BLOCK_ENVS = 128
 
 
-# --- componentwise building blocks (shared kernel <-> jnp twin) -------------
+# --- componentwise building blocks (shared kernel <-> jnp twins) ------------
 
 def bench_action_force(p: CartPoleParams, env_seed, t):
     """Deterministic pseudo-random benchmark action -> (fx, fy) forces.
@@ -66,13 +73,10 @@ def bench_action_force(p: CartPoleParams, env_seed, t):
     return ax * p.action_force, ay * p.action_force
 
 
-
-
-
 def _env_step_components(p: CartPoleParams, state, t):
     """One full env.step on component arrays. state is the 13-tuple
     (x, y, z, vx, vy, vz, sx, sy, sdx, sdy, steps, episode, seed_u32);
-    returns (state', obs_sum, reward_sum_contrib)."""
+    returns (state', obs_sum, reward)."""
     (x, y, z, vx, vy, vz, sx, sy, sdx, sdy, steps, episode, seed) = state
     fx, fy = bench_action_force(p, seed, t)
     obs_acc = jnp.zeros_like(x)
@@ -99,91 +103,87 @@ def _env_step_components(p: CartPoleParams, state, t):
     return sel + (steps, episode, seed), obs_acc, reward
 
 
-# --- the Pallas kernel -------------------------------------------------------
+def _components(state: EnvState):
+    ph = state.phys
+    return (ph.pos[:, 0], ph.pos[:, 1], ph.pos[:, 2],
+            ph.vel[:, 0], ph.vel[:, 1], ph.vel[:, 2],
+            ph.s[:, 0], ph.s[:, 1], ph.sd[:, 0], ph.sd[:, 1],
+            state.steps, state.episode, state.env_seed)
 
-def _rollout_kernel(p: CartPoleParams, num_steps: int,
-                    x, y, z, vx, vy, vz, sx, sy, sdx, sdy, steps, episode,
-                    seed,
-                    xo, yo, zo, vxo, vyo, vzo, sxo, syo, sdxo, sdyo,
-                    stepso, episodeo, acc_o):
-    """T env-steps entirely in VMEM. refs: 13 state in, 12 state + acc out."""
 
-    init = (x[:], y[:], z[:], vx[:], vy[:], vz[:], sx[:], sy[:],
-            sdx[:], sdy[:], steps[:], episode[:],
-            seed[:].astype(jnp.uint32))
+def _from_components(state: EnvState, comps) -> EnvState:
+    phys = type(state.phys)(
+        pos=jnp.stack(comps[0:3], axis=-1),
+        vel=jnp.stack(comps[3:6], axis=-1),
+        s=jnp.stack(comps[6:8], axis=-1),
+        sd=jnp.stack(comps[8:10], axis=-1))
+    return EnvState(phys=phys, steps=comps[10], episode=comps[11],
+                    env_seed=state.env_seed)
+
+
+# --- the Triton kernel -------------------------------------------------------
+
+def _rollout_kernel(p: CartPoleParams, num_steps: int, *refs):
+    """One block of envs for all T steps. refs: 13 state blocks in,
+    12 state blocks + 1 per-env checksum column out."""
+    ins, outs = refs[:13], refs[13:]
 
     def body(t, carry):
-        state, acc = carry[:-1], carry[-1]
-        state, obs_sum, reward = _env_step_components(
-            p, state, t.astype(jnp.uint32))
-        return tuple(state) + (acc + jnp.sum(obs_sum) + jnp.sum(reward),)
+        st, acc = carry[:-1], carry[-1]
+        st, obs_sum, reward = _env_step_components(
+            p, st, t.astype(jnp.uint32))
+        return tuple(st) + (acc + obs_sum + reward,)
 
+    init = tuple(r[...] for r in ins)
     out = jax.lax.fori_loop(0, num_steps, body,
-                            init + (jnp.float32(0.0),))
-    (xo[:], yo[:], zo[:], vxo[:], vyo[:], vzo[:], sxo[:], syo[:],
-     sdxo[:], sdyo[:]) = out[:10]
-    stepso[:] = out[10]
-    episodeo[:] = out[11]
-    # out[12] is the (constant) seed; the accumulator rides at the end.
-    acc_o[0, 0] = out[13]
+                            init + (jnp.zeros_like(init[0]),))
+    for o, v in zip(outs[:12], out[:12]):   # out[12] is the seed
+        o[...] = v
+    outs[12][...] = out[13]
 
 
-def _to_tiles(a, rows):
-    return a.reshape(rows, 128)
+def rollout_block_envs(num_envs: int) -> tuple[int, int]:
+    """(block, padded batch): the power-of-two env block the kernel runs
+    and the batch rounded up to a whole number of blocks. A batch
+    smaller than one block runs as one smaller power-of-two block."""
+    blk = min(BLOCK_ENVS, 1 << max(num_envs - 1, 0).bit_length())
+    return blk, -(-num_envs // blk) * blk
 
 
 def pallas_rollout(env, num_steps: int, interpret: bool = False):
     """Jitted fn: EnvState -> (EnvState, checksum) running the fused
-    kernel. Requires env.num_envs % 1024 == 0."""
+    Triton kernel. Any batch size: the env axis is padded to a block
+    multiple and sliced back."""
     p = env.params
     b = env.num_envs
-    if b % 1024 != 0:
-        raise ValueError(f"pallas_rollout needs num_envs % 1024 == 0, got {b}")
-    rows = b // 128
+    blk, bp = rollout_block_envs(b)
 
-    kernel = functools.partial(_rollout_kernel, p, num_steps)
-    tile_f32 = jax.ShapeDtypeStruct((rows, 128), jnp.float32)
-    tile_i32 = jax.ShapeDtypeStruct((rows, 128), jnp.int32)
-
+    spec = pl.BlockSpec((blk,), lambda i: (i,))
+    f32 = jax.ShapeDtypeStruct((bp,), jnp.float32)
+    i32 = jax.ShapeDtypeStruct((bp,), jnp.int32)
     call = pl.pallas_call(
-        kernel,
-        out_shape=(tile_f32,) * 10 + (tile_i32, tile_i32,
-                   jax.ShapeDtypeStruct((1, 1), jnp.float32)),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 13,
-        out_specs=tuple([pl.BlockSpec(memory_space=pltpu.VMEM)] * 12
-                        + [pl.BlockSpec(memory_space=pltpu.SMEM)]),
+        functools.partial(_rollout_kernel, p, num_steps),
+        out_shape=(f32,) * 10 + (i32, i32, f32),
+        grid=(bp // blk,),
+        in_specs=[spec] * 13,
+        out_specs=(spec,) * 13,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=max(blk // 32, 1), num_stages=1),  # one env/thread
         interpret=interpret,
+        name="cartpole_rollout",
     )
 
     def run(state: EnvState):
-        ph = state.phys
-        args = [
-            _to_tiles(ph.pos[:, 0], rows), _to_tiles(ph.pos[:, 1], rows),
-            _to_tiles(ph.pos[:, 2], rows),
-            _to_tiles(ph.vel[:, 0], rows), _to_tiles(ph.vel[:, 1], rows),
-            _to_tiles(ph.vel[:, 2], rows),
-            _to_tiles(ph.s[:, 0], rows), _to_tiles(ph.s[:, 1], rows),
-            _to_tiles(ph.sd[:, 0], rows), _to_tiles(ph.sd[:, 1], rows),
-            _to_tiles(state.steps, rows),
-            _to_tiles(state.episode, rows),
-            _to_tiles(state.env_seed.astype(jnp.int32), rows),
-        ]
-        out = call(*args)
-        flat = [o.reshape(b) for o in out[:12]]
-        phys = type(ph)(
-            pos=jnp.stack(flat[0:3], axis=-1),
-            vel=jnp.stack(flat[3:6], axis=-1),
-            s=jnp.stack(flat[6:8], axis=-1),
-            sd=jnp.stack(flat[8:10], axis=-1),
-        )
-        new_state = EnvState(phys=phys, steps=flat[10], episode=flat[11],
-                             env_seed=state.env_seed)
-        return new_state, out[12][0, 0]
+        comps = [jnp.pad(c, (0, bp - b)) for c in _components(state)]
+        out = call(*comps)
+        new_state = _from_components(state, [o[:b] for o in out[:12]])
+        return new_state, jnp.sum(out[12][:b])
 
     return jax.jit(run, donate_argnums=(0,))
 
 
-# --- jnp twin over env.step (for parity tests + fair fallback) --------------
+# --- XLA twin ------------------------------------------------------------------
 
 def reference_rollout(env, num_steps: int):
     """The same benchmark semantics through the public env.step path:

@@ -1,10 +1,10 @@
-"""Closed-form forward dynamics of the 3D cart-pole — the TPU-native
+"""Closed-form forward dynamics of the 3D cart-pole — the batched
 replacement for Bullet's `stepSimulation` constraint/contact solve.
 
 Reference counterpart: the Bullet C++ rigid-body pipeline invoked by
 `pybullet.stepSimulation()` from `bullet_cartpole.py` in the reference
 (semi-implicit Euler integration + joint constraint solve + ground contact,
-per /root/repo/BASELINE.json:5; reference mount empty this session).
+per BASELINE.json:5).
 
 Derivation (reduced coordinates — exact, no iterative solver):
   q = (x, y, z, ux, uy), the cart COM position and the horizontal components
@@ -29,7 +29,7 @@ Derivation (reduced coordinates — exact, no iterative solver):
   (K - J^2/Mt)(I + s s^T / w^2), whose inverse is (I - s s^T)/(K - J^2/Mt)
   exactly (Sherman–Morrison with |s|^2 + w^2 = 1). The whole forward
   dynamics is therefore ~60 branch-free flops per env per substep — no
-  matrix factorization, no iteration, ideal for the TPU VPU.
+  matrix factorization, no iteration, ideal for wide SIMD hardware.
 
   Correctness is machine-checked against an independent autodiff-Lagrangian
   implementation (physics/lagrangian.py) in tests/test_dynamics.py, and the
@@ -164,7 +164,7 @@ def substep_components(p: CartPoleParams, x, y, z, vx, vy, vz, sx, sy, sdx, sdy,
     """One semi-implicit Euler substep on component arrays.
 
     v_{t+1} = v_t + dt * a(q_t, v_t);  q_{t+1} = q_t + dt * v_{t+1}
-    (matches Bullet's integrator family per /root/repo/BASELINE.json:5).
+    (matches Bullet's integrator family per BASELINE.json:5).
     """
     ax, ay, az, asx, asy = accel_components(
         p, z, vx, vy, vz, sx, sy, sdx, sdy, fx, fy, push_x, push_y)
@@ -216,7 +216,7 @@ def run_substeps(p: CartPoleParams, st: PhysState, force_xy, push_xy,
 
     n is static. Uses lax.scan (the body is compiled once — XLA compile time
     of a fully unrolled chain grows superlinearly) with a tunable `unroll`
-    for the TPU hot path. Either way the whole repeat runs on-device with no
+    for the hot path. Either way the whole repeat runs on-device with no
     per-substep dispatch — this deletes the reference's ~15 Python<->C++
     crossings per env-step.
     """

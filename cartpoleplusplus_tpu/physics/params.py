@@ -3,10 +3,10 @@
 Reference counterpart: the URDF mass/inertia/joint definitions (`models/*.urdf`)
 plus the argparse options of `bullet_cartpole.py` in rebcabin/cartpoleplusplus
 (reference mount empty this session; behavioral contract from
-/root/repo/BASELINE.json:5 — semi-implicit Euler, cart–pole pivot joint
+BASELINE.json:5 — semi-implicit Euler, cart–pole pivot joint
 constraint, ground-plane contact resolution, random push perturbations).
 
-TPU-first design choice: the whole config is ONE hashable frozen dataclass so
+Design choice: the whole config is ONE hashable frozen dataclass so
 it can be a `static_argnum` of jitted functions — every parameter becomes an
 XLA compile-time constant, which lets the compiler constant-fold the dynamics
 coefficients (J, K, Schur denominator, dt) straight into the fused kernel.
@@ -27,7 +27,7 @@ class CartPoleParams:
     (ball) joint at a fixed point above the cart COM. Reduced ("minimal")
     coordinates q = (x, y, z, ux, uy) where (ux, uy) are the horizontal
     components of the pole's unit direction vector u, uz = sqrt(1-ux^2-uy^2).
-    This is the TPU-native replacement for Bullet's maximal-coordinate
+    This is the batched replacement for Bullet's maximal-coordinate
     iterative constraint solve: the joint constraint is exact by
     construction and the forward dynamics is a closed-form ~60-flop,
     branch-free expression (see physics/dynamics.py).
@@ -135,7 +135,7 @@ class CartPoleParams:
 
 
 # Preset matching the continuous-action benchmark config
-# (/root/repo/BASELINE.json:9 — "continuous-action variant with random push
+# (BASELINE.json:9 — "continuous-action variant with random push
 # perturbations (reward-shaped angle/position termination)").
 def continuous_params(**kw) -> CartPoleParams:
     base = dict(

@@ -8,7 +8,7 @@ mount empty this session).
 Here URDF remains the asset format but the destination is
 `CartPoleParams`: `params_from_urdf` reads the same three files (bundled
 defaults in ../models_urdf/) and returns the frozen config the compiled
-dynamics consumes — geometry edits reach the TPU kernel as compile-time
+dynamics consumes — geometry edits reach the fused kernel as compile-time
 constants. Only the fields this topology uses are read (masses, box/
 cylinder geometry, ground friction); anything else is ignored, matching
 how the reference's fixed scene used its URDFs.

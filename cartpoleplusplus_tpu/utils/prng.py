@@ -6,8 +6,8 @@ branches). Threefry costs more ALU ops than the entire 15-substep physics;
 a statistical-quality integer mixer is ~15 ops per draw. It is also pure
 uint32 elementwise arithmetic, so the *identical* sequence is reproducible
 in the jnp path, inside the Pallas kernel, and in the numpy oracle harness
-— which threefry (host-seeded) and pltpu.prng (per-core hardware PRNG)
-cannot give us simultaneously.
+— which threefry (host-seeded) and a hardware PRNG cannot give us
+simultaneously.
 
 Mixer: 'triple32' (exact-bias-optimal 32-bit permutation, public domain,
 Chris Wellons' hash-prospector), combined over words hash_combine-style.
@@ -23,7 +23,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 import numpy as np
 
-# numpy scalars (not jnp) so Pallas kernels do not capture device constants
+# numpy scalars (not jnp) so kernels do not capture device constants
 _GOLDEN = np.uint32(0x9E3779B9)
 
 
@@ -51,8 +51,8 @@ def hash_words(*words):
 def uniform_from_bits(bits, lo=0.0, hi=1.0):
     """uint32 bits -> float32 uniform in [lo, hi). Uses the top 24 bits.
 
-    The int32 hop is exact (bits >> 8 < 2^24) and required inside Pallas
-    kernels: Mosaic has no direct uint32 -> float32 cast.
+    The int32 hop is exact (bits >> 8 < 2^24) and keeps the conversion
+    a signed one, which every backend lowers (the fused kernel included).
     """
     u = (bits >> np.uint32(8)).astype(jnp.int32).astype(jnp.float32) \
         * np.float32(1.0 / (1 << 24))

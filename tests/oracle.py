@@ -1,8 +1,8 @@
 """Single-env CPU oracle: plain numpy, loop-per-substep, maximally readable.
 
-This is the parity reference prescribed by /root/repo/BASELINE.json:7
+This is the parity reference prescribed by BASELINE.json:7
 ("single-env discrete-action low-dim-state 3D cartpole episode, fixed seed
-(CPU reference)") and SURVEY.md §4: the jitted batched TPU path must match
+(CPU reference)") and SURVEY.md §4: the jitted batched device path must match
 this implementation per step to float tolerance.
 
 Randomness is injected (pre-drawn push vectors), so the oracle itself is

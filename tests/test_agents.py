@@ -302,7 +302,7 @@ def test_ddpg_from_pixels_smoke():
 
 
 def test_ddpg_bfloat16_compute():
-    """dtype="bfloat16" (the TPU MXU dtype) trains finitely: params stay
+    """dtype="bfloat16" (the tensor-core half dtype) trains finitely: params stay
     fp32, network compute runs in bf16."""
     env = CartPole3D(continuous_params(), num_envs=8)
     agent = DDPG(env, DDPGConfig(hidden=(32,), rollout_steps=2,
@@ -482,17 +482,14 @@ def test_train_scan_matches_loop(agent_cls, cfg_cls, params):
 
 
 def test_updates_per_step_zero_is_rollout_only():
-    """updates_per_step=0 is the decomposition-probe cadence
-    (BENCH_DDPG_UPDATES=0): the learner phase is skipped entirely —
-    params unchanged, zero (not NaN) losses, rollout/replay still
-    advance, and learner='auto' resolves away from the kernel (a K=0
-    phase has no grid)."""
+    """updates_per_step=0 is the rollout-only decomposition cadence:
+    the learner phase is skipped entirely — params unchanged, zero (not
+    NaN) losses, rollout/replay still advance."""
     env = CartPole3D(continuous_params(), num_envs=8)
     agent = DDPG(env, DDPGConfig(hidden=(16, 16), rollout_steps=2,
                                  updates_per_step=0, batch_size=8,
                                  replay_capacity_per_env=8,
-                                 warmup_env_steps=0, learner="auto"))
-    assert not agent.kernel_mode
+                                 warmup_env_steps=0))
     st = agent.init(0)
     actor0 = jax.tree.map(np.asarray, st.actor)
     st, m = agent.make_train_step()(st)
@@ -530,10 +527,7 @@ def test_train_scan_capture_matches_loop_chunks():
 @pytest.mark.slow
 def test_ddpg_lr_decay_schedule():
     """lr_decay_env_steps wires a linear optax schedule into both
-    optimizers (gradient-step keyed) and trains finitely. The fused
-    update kernel STAYS available (it computes the schedule in-kernel —
-    tests/test_learner_kernel.py::test_kernel_lr_schedule_matches_optax
-    pins the parity)."""
+    optimizers (gradient-step keyed) and trains finitely."""
     import math
 
     from cartpoleplusplus_tpu.physics.params import continuous_params
@@ -544,7 +538,6 @@ def test_ddpg_lr_decay_schedule():
                warmup_env_steps=0)
     ag_d = DDPG(env, DDPGConfig(lr_decay_env_steps=8, **cfg))
     ag_c = DDPG(env, DDPGConfig(**cfg))
-    assert ag_d.kernel_learner_ok()  # schedule supported in-kernel
     st = ag_d.init(0)
     step = jax.jit(ag_d.train_step)
     for _ in range(6):
@@ -660,8 +653,7 @@ def test_pixel_train_step_has_no_ring_copies():
         # The add_trajectory cursor-alignment cond used to route the
         # ring through BOTH branches (4 copies incl. layout changes);
         # CPU's conservative copy-insertion still emits <=2 same-layout
-        # defensive copies for the donated param (TPU aliases them —
-        # throughput A/B in BASELINE.md round 4), so pin: no ring-shaped
+        # defensive copies for the donated param, so pin: no ring-shaped
         # conditional, and no more than 2 plain copies.
         assert not conds, f"warmup={warmup}: ring routed through cond"
         assert len(copies) <= 2, (
@@ -672,8 +664,8 @@ def test_pixel_train_step_has_no_ring_copies():
 @pytest.mark.slow
 def test_presample_columns_pixel_slices_match_sample_columns():
     """Quantized rings fetch columns via unrolled dynamic slices instead
-    of jnp.take (round-4: take lowered to a full-ring sweep on TPU —
-    5.2 ms/step on a 1.8 GB ring); the slice path must stay bitwise
+    of jnp.take (a take can lower to a sweep of the whole ring); the
+    slice path must stay bitwise
     jax.vmap(sample_columns) at both multiple and non-multiple batch
     sizes."""
     from cartpoleplusplus_tpu.agents.replay import ReplayBuffer
@@ -744,7 +736,7 @@ def test_block_sampling_semantics_and_presample_bitwise():
 @pytest.mark.slow
 def test_frozen_target_update_scan_matches_update_once():
     """The per_step-polyak XLA learner hoists the TD-target pass out of
-    the update scan (round 5): y for all K minibatches in ONE batched
+    the update scan: y for all K minibatches in ONE batched
     target-net pass. Under per_step semantics the targets are frozen
     across the scan, so this must match scanning _update_once (which
     recomputes y per update from the same frozen targets) to f32
@@ -758,8 +750,7 @@ def test_frozen_target_update_scan_matches_update_once():
     env = CartPole3D(continuous_params(), num_envs=32)
     cfg = DDPGConfig(hidden=(32, 32), rollout_steps=4, updates_per_step=3,
                      batch_size=32, replay_capacity_per_env=16,
-                     warmup_env_steps=0, polyak_cadence="per_step",
-                     learner="xla")
+                     warmup_env_steps=0, polyak_cadence="per_step")
     a_new = DDPG(env, cfg)
     a_ref = DDPG(env, cfg)
 

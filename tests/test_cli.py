@@ -111,36 +111,6 @@ def test_train_main_dqn_with_ckpt_and_eventlog(tmp_path, capsys):
     assert lines2 and lines2[-1]["env_steps"] == 16.0
 
 
-def test_ddpg_kernel_learner_cli_and_cross_layout_ckpt(tmp_path, capsys):
-    """--ddpg.learner kernel trains through the fused update-phase
-    kernel (interpret on CPU) on a state kept in the kernel's flat
-    layout; checkpoints hold the CANONICAL tree layout, so an XLA-mode
-    --eval-only restores the same weights (cross-layout round trip)."""
-    ck = tmp_path / "ck"
-    base = ["--agent", "ddpg", "--num-envs", "16",
-            "--total-env-steps", "8", "--log-interval", "1",
-            "--seed", "3", "--ckpt-dir", str(ck),
-            "--ddpg.hidden", "16", "16", "--ddpg.rollout-steps", "2",
-            "--ddpg.updates-per-step", "2", "--ddpg.batch-size", "16",
-            "--ddpg.learner-block", "16",
-            "--ddpg.replay-capacity-per-env", "8",
-            "--ddpg.warmup-env-steps", "0"]
-    rc = main(base + ["--ddpg.learner", "kernel"])
-    assert rc == 0
-    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
-    assert np.isfinite(lines[-1]["critic_loss"])
-
-    evals = []
-    for learner in ("xla", "kernel"):
-        rc = main(base + ["--ddpg.learner", learner, "--eval-only",
-                          "--eval-steps", "16"])
-        assert rc == 0
-        out = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
-        evals.append(out[0]["reward_mean"])
-    # Both learner modes restore the identical canonical weights.
-    assert evals[0] == evals[1]
-
-
 def test_train_main_shardmap_learner(capsys):
     """--learner shardmap drives the explicit-communication path on the
     virtual 8-device mesh."""
@@ -154,33 +124,6 @@ def test_train_main_shardmap_learner(capsys):
     assert rc == 0
     lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
     assert np.isfinite(lines[-1]["critic_loss"])
-
-
-def test_train_main_shardmap_kernel_learner(capsys):
-    """--learner shardmap composes with --ddpg.learner kernel (VERDICT
-    r2 missing #1): the per-shard minibatches are all_gathered and every
-    shard runs the identical fused update kernel. The metrics stream
-    reports which learner implementation actually ran (learner_impl:
-    1.0 = Pallas kernel, 0.0 = XLA scan — the auto-fallback visibility
-    key)."""
-    base = ["--agent", "ddpg", "--num-envs", "32",
-            "--total-env-steps", "4", "--log-interval", "1",
-            "--learner", "shardmap",
-            "--ddpg.hidden", "16", "16", "--ddpg.rollout-steps", "2",
-            "--ddpg.updates-per-step", "1", "--ddpg.batch-size", "64",
-            "--ddpg.learner-block", "16",
-            "--ddpg.replay-capacity-per-env", "8",
-            "--ddpg.warmup-env-steps", "0"]
-    rc = main(base + ["--ddpg.learner", "kernel"])
-    assert rc == 0
-    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
-    assert np.isfinite(lines[-1]["critic_loss"])
-    assert lines[-1]["learner_impl"] == 1.0
-
-    rc = main(base + ["--ddpg.learner", "xla"])
-    assert rc == 0
-    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
-    assert lines[-1]["learner_impl"] == 0.0
 
 
 def test_shardmap_learner_with_eventlog(tmp_path, capsys):
@@ -336,35 +279,6 @@ def test_train_steps_per_dispatch_chunked(tmp_path, capsys):
     assert sum(len(c["reward"]) for c in chunks) == 12 * 8
 
 
-def test_lrpg_kernel_learner_cli_and_cross_layout_ckpt(tmp_path, capsys):
-    """--lrpg.learner kernel trains through the fused softmax-PG update
-    kernel (interpret on CPU) on a flat-layout state; checkpoints hold
-    the CANONICAL tree layout, so an XLA-mode --eval-only restores the
-    same weights (cross-layout round trip), and the metrics stream
-    reports which learner ran (learner_impl)."""
-    ck = tmp_path / "ck"
-    base = ["--agent", "lrpg", "--num-envs", "16",
-            "--total-env-steps", "8", "--log-interval", "1",
-            "--seed", "3", "--ckpt-dir", str(ck),
-            "--lrpg.hidden", "16", "16", "--lrpg.rollout-steps", "2",
-            "--lrpg.learner-block", "16"]
-    rc = main(base + ["--lrpg.learner", "kernel"])
-    assert rc == 0
-    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
-    assert np.isfinite(lines[-1]["loss"])
-    assert lines[-1]["learner_impl"] == 1.0
-
-    evals = []
-    for learner in ("xla", "kernel"):
-        rc = main(base + ["--lrpg.learner", learner, "--eval-only",
-                          "--eval-steps", "16"])
-        assert rc == 0
-        out = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
-        evals.append(out[0]["reward_mean"])
-    # Both learner modes restore the identical canonical weights.
-    assert evals[0] == evals[1]
-
-
 def test_preset_fast_merges_without_clobbering(tmp_path, capsys):
     """--preset fast lifts unset run/agent fields to the measured
     high-throughput recipe; explicitly-typed flags always win."""
@@ -394,10 +308,9 @@ def test_preset_fast_merges_without_clobbering(tmp_path, capsys):
 
 
 def test_preset_fast_naf_merges_and_trains(capsys):
-    """--preset fast --agent naf lifts the round-4 kernel+canary recipe
-    (learner=kernel, end-of-budget canary with restart budget 5);
-    explicit flags still win, and a tiny end-to-end run through main()
-    exercises the kernel learner + canary path on CPU."""
+    """--preset fast --agent naf lifts the canary recipe (end-of-budget
+    canary with restart budget 5); explicit flags still win, and a tiny
+    end-to-end run through main() exercises the canary path on CPU."""
     from cartpoleplusplus_tpu.config import (RunConfig, explicit_dests,
                                              from_args)
     from cartpoleplusplus_tpu.train import _PRESETS, build, build_parser
@@ -415,7 +328,6 @@ def test_preset_fast_naf_merges_and_trains(capsys):
     assert run.total_env_steps == 80_000           # lifted
     assert run.canary_env_steps == 80_000          # lifted
     assert run.canary_max_restarts == 5            # lifted
-    assert agent.cfg.learner == "kernel"           # lifted
     rc = main(["--agent", "naf", "--preset", "fast", "--num-envs", "16",
                "--total-env-steps", "32", "--canary-env-steps", "32",
                "--canary-min-eval", "0", "--log-interval", "100",
@@ -435,26 +347,23 @@ def test_preset_fast_unknown_agent_errors(capsys):
 
 
 def test_preset_fast_lrpg_trains_end_to_end(capsys):
-    """--preset fast for lrpg lifts the measured kernel-learner solve
-    recipe (2048 envs, dispatch 16, learner=kernel — BASELINE.md round-3:
-    200.0/200 at 89.5M env-steps/s); explicit flags shrink it to CPU size
-    and the run still trains through the fused update path end to end."""
+    """--preset fast for lrpg lifts its recipe (2048 envs, dispatch
+    16); explicit flags shrink it to CPU size and the run trains end to
+    end."""
     rc = main(["--agent", "lrpg", "--preset", "fast",
                "--num-envs", "16", "--total-env-steps", "8",
                "--steps-per-dispatch", "2", "--log-interval", "1",
-               "--lrpg.hidden", "16", "16", "--lrpg.rollout-steps", "2",
-               "--lrpg.learner-block", "16"])
+               "--lrpg.hidden", "16", "16", "--lrpg.rollout-steps", "2"])
     assert rc == 0
     lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
-    # The preset's learner=kernel must survive the merge (learner_impl=1).
-    assert lines[-1]["learner_impl"] == 1.0
+    assert np.isfinite(lines[-1]["loss"])
+    assert lines[-1]["env_steps"] == 8.0
 
 
 def test_preset_pixels_merges_without_clobbering():
-    """--preset pixels lifts unset fields to the measured pixel-learning
-    winner (round-5 recipe: 2048 envs / block sampling / 200k steps,
-    restored eval 198.32 / 200 median — BASELINE.md round-5);
-    explicitly-typed flags always win."""
+    """--preset pixels lifts unset fields to the pixel-learning recipe
+    (2048 envs / block sampling / 200k steps); explicitly-typed flags
+    always win."""
     import dataclasses as dc
 
     from cartpoleplusplus_tpu.config import (RunConfig, explicit_dests,
@@ -462,8 +371,7 @@ def test_preset_pixels_merges_without_clobbering():
     from cartpoleplusplus_tpu.train import _PRESETS, build, build_parser
 
     # batch-size 8 keeps the preset's block sampling valid at the tiny
-    # debug env count (the round-5 construction guard requires
-    # batch | num_envs).
+    # debug env count (the construction guard requires batch | num_envs).
     argv = ["--agent", "ddpg", "--preset", "pixels", "--num-envs", "8",
             "--ddpg.batch-size", "8",
             "--render-size", "24", "--total-env-steps", "4"]
@@ -489,12 +397,10 @@ def test_preset_pixels_merges_without_clobbering():
 
 
 def test_ckpt_cadence_under_chunked_dispatch(tmp_path):
-    """Round-3 hardware bug: with --steps-per-dispatch > 1 saves land on
-    chunk-boundary step indices (511, 1007, ...) that satisfy the
-    interval window but not orbax's `step % interval == 0` re-check —
-    orbax silently skipped every one, leaving long runs with a single
-    early checkpoint. train.py now forces the save; the LATEST
-    checkpoint must be the final training state."""
+    """With --steps-per-dispatch > 1 saves land on chunk-boundary step
+    indices (511, 1007, ...) that satisfy the interval window but not
+    the manager's `step % interval == 0` policy; train.py forces those
+    saves, and the LATEST checkpoint must be the final training state."""
     d = tmp_path / "ck"
     rc = main(["--agent", "dqn", "--num-envs", "16",
                "--total-env-steps", "256", "--steps-per-dispatch", "16",

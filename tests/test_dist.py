@@ -6,7 +6,6 @@ Reference counterpart: none — the reference is single-process (SURVEY.md
 scaled down to virtual devices per SURVEY.md §4.
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -75,10 +74,14 @@ def test_ddpg_sharded_train_step(n):
 
 @pytest.mark.slow
 def test_graft_entry_contract():
-    """The driver-facing entry points run on the virtual device mesh."""
+    """The entry()/dryrun_multichip contract runs on the virtual device
+    mesh."""
     import importlib.util
+    import os
     spec = importlib.util.spec_from_file_location(
-        "__graft_entry__", "/root/repo/__graft_entry__.py")
+        "__graft_entry__", os.path.join(os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__))),
+            "__graft_entry__.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     fn, args = mod.entry()
@@ -212,96 +215,6 @@ def test_shardmap_dqn_naf_train_step(agent_spec):
         np.testing.assert_array_equal(shards[0], sh)
 
 
-@pytest.mark.slow
-def test_shardmap_kernel_learner_matches_xla():
-    """VERDICT r2 missing #1: the fused update kernel composes with
-    shard_map via batch replication (gather_batches) — the per-shard
-    presampled minibatches are all_gathered and every shard runs the
-    identical full-batch kernel. After 3 train steps from identical
-    inits, the kernel-learner params match the XLA pmean learner's
-    (same union batches; mean-over-union == pmean of per-shard means)
-    and stay bitwise-replicated across shards."""
-    from cartpoleplusplus_tpu.dist import (DATA_AXIS,
-                                           make_shardmap_train_step)
-
-    n = 8
-    mesh = make_mesh(jax.devices()[:n])
-    params = continuous_params()
-    base = dict(hidden=(16, 16), rollout_steps=2, updates_per_step=2,
-                batch_size=64, replay_capacity_per_env=16,
-                warmup_env_steps=0)
-    env_g = CartPole3D(params, num_envs=8 * n)
-    env_l = CartPole3D(params, num_envs=8)
-
-    states, agents = {}, {}
-    for learner in ("xla", "kernel"):
-        cfg = DDPGConfig(**base, learner=learner)
-        st = shard_agent_state(DDPG(env_g, cfg).init(0), mesh)
-        agent_l = DDPG(env_l, cfg, dist_axis=DATA_AXIS, num_shards=n)
-        assert agent_l.kernel_mode == (learner == "kernel")
-        step = make_shardmap_train_step(agent_l, mesh, st)
-        for _ in range(3):
-            st, metrics = step(st)
-        states[learner], agents[learner] = st, agent_l
-        assert float(metrics["learner_impl"]) == float(learner == "kernel")
-
-    tree_k = agents["kernel"].state_to_tree(states["kernel"])
-    tol = dict(rtol=1e-4, atol=2e-5)
-    for name in ("actor", "critic", "actor_target", "critic_target"):
-        for lx, lk_ in zip(jax.tree.leaves(getattr(states["xla"], name)),
-                           jax.tree.leaves(getattr(tree_k, name))):
-            np.testing.assert_allclose(np.asarray(lx), np.asarray(lk_),
-                                       **tol)
-    # Kernel-path params stay bitwise-identical across shards (every
-    # shard consumed the identical gathered batches).
-    leaf = jax.tree.leaves(states["kernel"].actor)[0]
-    shards = [np.asarray(leaf.addressable_data(i)) for i in range(n)]
-    for sh in shards[1:]:
-        np.testing.assert_array_equal(shards[0], sh)
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("agent_spec", ["dqn", "naf"])
-def test_shardmap_kernel_learner_dqn_naf(agent_spec):
-    """The batch-replication composition covers DQN and NAF too: the
-    kernel learner runs under shard_map with replicated-identical
-    parameters matching the XLA pmean learner."""
-    from cartpoleplusplus_tpu.agents import DQN, DQNConfig, NAF, NAFConfig
-    from cartpoleplusplus_tpu.dist import (DATA_AXIS,
-                                           make_shardmap_train_step)
-
-    n = 8
-    mesh = make_mesh(jax.devices()[:n])
-    if agent_spec == "dqn":
-        cls, cfg_cls, params = DQN, DQNConfig, CartPoleParams()
-    else:
-        cls, cfg_cls, params = NAF, NAFConfig, continuous_params()
-    base = dict(hidden=(16,), rollout_steps=2, updates_per_step=2,
-                batch_size=64, replay_capacity_per_env=16,
-                warmup_env_steps=0)
-    outs = {}
-    for learner in ("xla", "kernel"):
-        cfg = cfg_cls(**base, learner=learner)
-        st = shard_agent_state(
-            cls(CartPole3D(params, num_envs=8 * n), cfg).init(0), mesh)
-        agent_l = cls(CartPole3D(params, num_envs=8), cfg,
-                      dist_axis=DATA_AXIS, num_shards=n)
-        assert agent_l.kernel_mode == (learner == "kernel")
-        step = make_shardmap_train_step(agent_l, mesh, st)
-        for _ in range(2):
-            st, metrics = step(st)
-        assert np.isfinite(float(metrics["loss"]))
-        outs[learner] = agent_l.state_to_tree(st)
-        leaf = jax.tree.leaves(st[0])[0]
-        shards = [np.asarray(leaf.addressable_data(i)) for i in range(n)]
-        for sh in shards[1:]:
-            np.testing.assert_array_equal(shards[0], sh)
-    for lx, lk_ in zip(jax.tree.leaves(outs["xla"][0]),
-                       jax.tree.leaves(outs["kernel"][0])):
-        np.testing.assert_allclose(np.asarray(lx), np.asarray(lk_),
-                                   rtol=1e-4, atol=2e-5)
-
-
 def test_exploration_noise_layout_independent():
     """Agent exploration is a counter-PRNG function of (per-env seed,
     global step): after one train_step from identical inits, the rolled
@@ -357,12 +270,10 @@ def test_lrpg_sampling_batch_slot_independent():
 
 @pytest.mark.slow
 def test_shardmap_lrpg_matches_single_device():
-    """LRPG under shard_map (round 3: the last agent family to get a
-    dist path) matches the single-device agent on the union window for
-    BOTH learners: the window statistics (returns baseline, advantage
-    mean/std) pmean to the global values, the XLA gradient pmeans, and
-    the kernel learner all_gathers the window and runs the identical
-    full-window kernel on every shard (replicated-identical params)."""
+    """LRPG under shard_map matches the single-device agent on the union
+    window: the window statistics (returns baseline, advantage
+    mean/std) pmean to the global values and the gradient pmeans, with
+    replicated-identical params."""
     from cartpoleplusplus_tpu.agents import LRPG, LRPGConfig
     from cartpoleplusplus_tpu.dist import (DATA_AXIS,
                                            make_shardmap_train_step)
@@ -370,57 +281,46 @@ def test_shardmap_lrpg_matches_single_device():
     n = 8
     mesh = make_mesh(jax.devices()[:n])
     params = CartPoleParams()
-    base = dict(hidden=(16, 16), rollout_steps=2, learner_block=16)
+    cfg = LRPGConfig(hidden=(16, 16), rollout_steps=2)
 
-    # Single-device reference on the global env (XLA learner).
-    ag_g = LRPG(CartPole3D(params, num_envs=8 * n),
-                LRPGConfig(**base, learner="xla"))
+    # Single-device reference on the global env.
+    ag_g = LRPG(CartPole3D(params, num_envs=8 * n), cfg)
     st_g = ag_g.init(0)
-    step_g = ag_g.make_train_step(fused=False)
+    step_g = ag_g.make_train_step()
     for _ in range(3):
         st_g, m_g = step_g(st_g)
 
     tol = dict(rtol=2e-4, atol=1e-5)
-    for learner in ("xla", "kernel"):
-        cfg = LRPGConfig(**base, learner=learner)
-        st = shard_agent_state(
-            LRPG(CartPole3D(params, num_envs=8 * n), cfg).init(0), mesh)
-        agent_l = LRPG(CartPole3D(params, num_envs=8), cfg,
-                       dist_axis=DATA_AXIS, num_shards=n)
-        assert agent_l.kernel_mode == (learner == "kernel")
-        step = make_shardmap_train_step(agent_l, mesh, st)
-        for _ in range(3):
-            st, metrics = step(st)
-        assert float(metrics["learner_impl"]) == float(learner == "kernel")
-        tree = agent_l.state_to_tree(st)
-        for lx, lg in zip(jax.tree.leaves(tree.params),
-                          jax.tree.leaves(st_g.params)):
-            np.testing.assert_allclose(np.asarray(lx), np.asarray(lg),
-                                       **tol)
-        np.testing.assert_allclose(float(tree.baseline),
-                                   float(st_g.baseline), **tol)
-        np.testing.assert_allclose(float(metrics["loss"]),
-                                   float(m_g["loss"]), **tol)
-        # Params stay bitwise-identical across shards.
-        leaf = jax.tree.leaves(st.params)[0]
-        shards = [np.asarray(leaf.addressable_data(i)) for i in range(n)]
-        for sh in shards[1:]:
-            np.testing.assert_array_equal(shards[0], sh)
+    st = shard_agent_state(
+        LRPG(CartPole3D(params, num_envs=8 * n), cfg).init(0), mesh)
+    agent_l = LRPG(CartPole3D(params, num_envs=8), cfg,
+                   dist_axis=DATA_AXIS, num_shards=n)
+    step = make_shardmap_train_step(agent_l, mesh, st)
+    for _ in range(3):
+        st, metrics = step(st)
+    for lx, lg in zip(jax.tree.leaves(st.params),
+                      jax.tree.leaves(st_g.params)):
+        np.testing.assert_allclose(np.asarray(lx), np.asarray(lg), **tol)
+    np.testing.assert_allclose(float(st.baseline), float(st_g.baseline),
+                               **tol)
+    np.testing.assert_allclose(float(metrics["loss"]), float(m_g["loss"]),
+                               **tol)
+    # Params stay bitwise-identical across shards.
+    leaf = jax.tree.leaves(st.params)[0]
+    shards = [np.asarray(leaf.addressable_data(i)) for i in range(n)]
+    for sh in shards[1:]:
+        np.testing.assert_array_equal(shards[0], sh)
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("learner", ["xla", "kernel"])
-def test_shardmap_evaluate_matches_global(learner):
+def test_shardmap_evaluate_matches_global():
     """Sharded eval (dist/shardmap.py::make_shardmap_evaluate) is the
     exact twin of the global agent.evaluate: each shard resets its env
     slice with GLOBAL env identities (reset index_offset =
     axis_index * local_b) and the completed-episode histogram is psum'd.
     Integer episode statistics must match the unsharded eval EXACTLY
     (any off-by-one in env identity or a flipped done would change the
-    histogram); reward_mean to fp summation order. The kernel variant
-    exercises the kernel-FLAT state layout: the sharded eval reads the
-    LOCAL agent's state layout directly (its greedy_policy), which the
-    global-agent eval path could not."""
+    histogram); reward_mean to fp summation order."""
     from cartpoleplusplus_tpu.dist import (DATA_AXIS,
                                            make_shardmap_evaluate)
 
@@ -440,13 +340,9 @@ def test_shardmap_evaluate_matches_global(learner):
     ref = {k: float(v) for k, v in jax.jit(
         agent_g.evaluate, static_argnums=(1, 2))(st_g, 30, 0).items()}
 
-    cfg_l = dataclasses.replace(cfg, learner=learner)
-    agent_l = DDPG(CartPole3D(params, num_envs=8), cfg_l,
+    agent_l = DDPG(CartPole3D(params, num_envs=8), cfg,
                    dist_axis=DATA_AXIS, num_shards=n)
-    assert agent_l.kernel_mode == (learner == "kernel")
-    st_l = jax.jit(lambda s: agent_l.state_from_tree(
-        agent_g.state_to_tree(s)))(st_g)
-    st_l = shard_agent_state(st_l, mesh)
+    st_l = shard_agent_state(st_g, mesh)
     got = {k: float(v) for k, v in make_shardmap_evaluate(
         agent_l, mesh, st_l, 30, 0)(st_l).items()}
 
@@ -508,8 +404,7 @@ def test_shardmap_dqn_learns():
 #
 # Config 4 (pixels) and config 5 (sharded training) were never composed
 # before round 5: a sharded pixel train step exercises the quantized
-# shard-aligned ring, the render path (XLA twin on CPU; the fused obs
-# kernel on TPU is per-shard under shard_map) and the uint8 obs
+# shard-aligned ring, the render path and the uint8 obs
 # stack under both the SPMD partitioner and shard_map bodies.
 
 def _pixel_cfg():

@@ -4,7 +4,7 @@ SURVEY.md §4: "multi-host is tested with jax.distributed multi-process on
 one host". Two JAX processes x 2 virtual CPU devices form a 4-device
 global ('data',) mesh via `initialize_multihost`; the sharded env rollout
 must produce identical totals on every rank — the runtime layer BASELINE
-config 5 needs (/root/repo/BASELINE.json:11), minus the real pod.
+config 5 needs (BASELINE.json:11), minus the real cluster.
 """
 
 import os
@@ -210,3 +210,73 @@ def test_two_process_dqn_learns(tmp_path):
     assert learned > 2.0 * rand, (
         f"2-process sharded DQN {learned:.1f} vs random {rand:.1f} — "
         f"learning did not cross the process boundary")
+
+
+_CKPT_WORKER = r"""
+import os, sys
+os.environ["JAX_PLATFORMS"] = "cpu"
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+import jax
+jax.config.update("jax_platforms", "cpu")
+rank = int(sys.argv[1])
+port = sys.argv[2]
+ckpt_dir = sys.argv[3]
+sys.path.insert(0, {repo!r})
+from cartpoleplusplus_tpu.dist import (initialize_multihost, make_mesh,
+                                       make_distributed_train_step,
+                                       shard_agent_state)
+initialize_multihost(f"localhost:{{port}}".format(port=port),
+                     num_processes=2, process_id=rank)
+import numpy as np
+from jax.experimental import multihost_utils
+from cartpoleplusplus_tpu import CartPole3D
+from cartpoleplusplus_tpu.agents import DDPG, DDPGConfig
+from cartpoleplusplus_tpu.ckpt import CheckpointManager
+from cartpoleplusplus_tpu.physics.params import continuous_params
+
+env = CartPole3D(continuous_params(), num_envs=16)
+agent = DDPG(env, DDPGConfig(hidden=(16,), rollout_steps=2,
+                             updates_per_step=1, batch_size=16,
+                             replay_capacity_per_env=16,
+                             warmup_env_steps=0))
+mesh = make_mesh()
+state = shard_agent_state(agent.init(0), mesh)
+state, _ = make_distributed_train_step(agent, mesh)(state)
+with CheckpointManager(ckpt_dir, max_to_keep=1) as mgr:
+    mgr.save(1, state, force=True)
+    mgr.save(2, state, force=True)
+    assert mgr.all_steps() == [2], mgr.all_steps()
+    restored = mgr.restore(shard_agent_state(agent.init(1), mesh))
+gather = lambda x: np.asarray(multihost_utils.process_allgather(x, tiled=True))
+n = 0
+for a, b in zip(jax.tree.leaves(state), jax.tree.leaves(restored)):
+    assert b.sharding == a.sharding, (a.sharding, b.sharding)
+    np.testing.assert_array_equal(gather(a), gather(b))
+    n += 1
+print("CKPT", n, flush=True)
+"""
+
+
+def test_two_process_checkpoint_roundtrip(tmp_path):
+    """A DDPG state sharded across 2 processes (replay split over the
+    process boundary, params replicated) saves through CheckpointManager
+    and restores onto a fresh state with the same shardings, equal leaf
+    for leaf on both ranks; retention keeps only the newest step."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "ckpt_worker.py"
+    script.write_text(_CKPT_WORKER.replace("{repo!r}", repr(repo)))
+    port = "23479"
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(rank), port,
+         str(tmp_path / "ckpt")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env) for rank in range(2)]
+    lines = []
+    for p in procs:
+        out, _ = p.communicate(timeout=280)
+        assert p.returncode == 0, out[-2000:]
+        ln = [l for l in out.splitlines() if l.startswith("CKPT")]
+        assert ln, out[-2000:]
+        lines.append(ln[0])
+    assert lines[0] == lines[1] and int(lines[0].split()[1]) > 0, lines

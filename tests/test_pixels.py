@@ -209,33 +209,11 @@ def test_auto_reset_obs_is_constant_reset_frame():
         "live envs should observe mid-episode frames, not the reset image"
 
 
-def test_render_kernel_parity_interpret():
-    """The Pallas raycast kernel is the same shade_components math as
-    the XLA path — images must match to f32 fusion tolerance
-    (interpret mode on CPU; hardware throughput in BENCH)."""
-    from cartpoleplusplus_tpu.ops.render_kernel import (
-        pallas_render_all, renderable)
-    cfg = RenderConfig(width=16, height=16)  # 256 px: lane-aligned
-    assert renderable(cfg, 8)
-    phys = rest_state(P, batch_shape=(8,))
-    phys = phys._replace(
-        pos=phys.pos.at[:, 0].set(jnp.linspace(-1.0, 1.0, 8)),
-        s=phys.s.at[:, 0].set(jnp.linspace(-0.25, 0.25, 8)))
-    ker = jax.jit(pallas_render_all(P, cfg, 8, interpret=True))(phys)
-    ref = jax.jit(lambda ph: render_all_cameras(P, ph, cfg))(phys)
-    assert ker.shape == ref.shape == (8, 16, 16, 6)
-    np.testing.assert_allclose(np.asarray(ker), np.asarray(ref),
-                               rtol=1e-5, atol=1e-5)
-    assert not renderable(RenderConfig(width=10, height=10), 8)
-
-
 def test_grayscale_composite_parity():
     """Grayscale path invariants: (a) the in-shade luminance composite
     equals the mean of the RGB channels (clip commutes: all channel
-    values are in [0, 1] by construction); (b) the Pallas gray kernel
-    matches the XLA gray path; (c) the env emits 1 channel per
-    camera-repeat."""
-    from cartpoleplusplus_tpu.ops.render_kernel import pallas_render_all
+    values are in [0, 1] by construction); (b) the env emits 1 channel
+    per camera-repeat."""
     cfg_g = RenderConfig(width=16, height=16, grayscale=True)
     cfg_rgb = RenderConfig(width=16, height=16)
     phys = rest_state(P, batch_shape=(8,))
@@ -251,9 +229,6 @@ def test_grayscale_composite_parity():
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(gray[..., 1], rgb[..., 3:].mean(-1),
                                rtol=1e-5, atol=1e-5)
-    ker = np.asarray(jax.jit(
-        pallas_render_all(P, cfg_g, 8, interpret=True))(phys))
-    np.testing.assert_allclose(ker, gray, rtol=1e-5, atol=1e-5)
 
     env = CartPole3D(P, num_envs=3, obs_mode="pixels",
                      render_config=cfg_g)
@@ -264,11 +239,10 @@ def test_grayscale_composite_parity():
 
 @pytest.mark.slow
 def test_patch_encoder_shapes_and_training():
-    """PatchEncoder (models/nets.py): the MXU-native pixel encoder —
+    """PatchEncoder (models/nets.py): the patch-embedding pixel encoder —
     output shape contract ((H/P)*(W/P)*features[-1] flat f32), uint8
     and float inputs produce identical features, and a pixel-DDPG train
-    step through encoder="patch" learns finite metrics end to end
-    (round-4 throughput redesign; quality A/B in BASELINE.md)."""
+    step through encoder="patch" learns finite metrics end to end."""
     from cartpoleplusplus_tpu.agents import DDPG, DDPGConfig
     from cartpoleplusplus_tpu.models import PatchEncoder
     from cartpoleplusplus_tpu.physics.params import continuous_params
@@ -307,57 +281,9 @@ def test_patch_encoder_shapes_and_training():
     assert moved, "patch-encoder train step left the actor unchanged"
 
 
-def test_obs_kernel_parity_interpret():
-    """The whole-obs render kernel (ops/render_kernel.py::
-    pallas_render_obs — every repeat x camera frame + frame-diff encode
-    + uint8 quantize of one env.step as ONE pallas_call) must match the
-    XLA obs pipeline through env.step: uint8 obs within one
-    quantization level, float obs to f32 fusion tolerance, and
-    reward/done streams bitwise (the kernel only changes how obs are
-    produced, never the physics)."""
-    from cartpoleplusplus_tpu.ops.render_kernel import obs_renderable
-    from cartpoleplusplus_tpu.physics.params import continuous_params
-
-    p = continuous_params()
-    for kw, tol in [
-        (dict(grayscale=True, obs_uint8=True, frame_diff=True,
-              frame_diff_gain=4.0), 1.0),       # the --preset pixels config
-        (dict(grayscale=False, obs_uint8=False), 3e-4),
-    ]:
-        rc = RenderConfig(width=16, height=16, **kw)
-        assert obs_renderable(p, rc, 8)
-        env_x = CartPole3D(p, num_envs=8, obs_mode="pixels",
-                           render_config=rc)
-        env_k = CartPole3D(p, num_envs=8, obs_mode="pixels",
-                           render_config=rc)
-        env_k._obs_kernel_interpret = True
-        assert env_k._obs_kernel() is not None \
-            and env_x._obs_kernel() is None  # CPU: XLA path by default
-        key = jax.random.PRNGKey(0)
-        st_x, obs_x = jax.jit(env_x.reset)(key)
-        st_k, obs_k = jax.jit(env_k.reset)(key)
-        step_x, step_k = jax.jit(env_x.step), jax.jit(env_k.step)
-        a = jnp.tile(jnp.array([[0.7, -0.4]]), (8, 1))
-        for _ in range(3):
-            st_x, obs_x, r_x, d_x, _ = step_x(st_x, a)
-            st_k, obs_k, r_k, d_k, _ = step_k(st_k, a)
-            assert obs_x.shape == obs_k.shape and obs_x.dtype == obs_k.dtype
-            np.testing.assert_allclose(
-                np.asarray(obs_k, np.float32), np.asarray(obs_x, np.float32),
-                atol=tol)
-            np.testing.assert_array_equal(np.asarray(d_k), np.asarray(d_x))
-            np.testing.assert_array_equal(np.asarray(r_k), np.asarray(r_x))
-
-    # Coverage gates: non-lane-aligned pixel counts and odd batches fall
-    # back to the XLA path.
-    assert not obs_renderable(p, RenderConfig(width=10, height=10), 8)
-    assert not obs_renderable(p, RenderConfig(width=16, height=16), 9)
-
-
 def test_pixel_naf_and_lrpg_train(tmp_path):
-    """Pixel-observation NAF and LRPG (VERDICT r4 item 6 — the
-    reference trained its agents from pixels through a shared conv
-    stack): conv-encoder nets wire in, the quantized uint8 ring holds
+    """Pixel-observation NAF and LRPG (the reference trained its agents
+    from pixels through a shared conv stack): conv-encoder nets wire in, the quantized uint8 ring holds
     NAF's replay, params move, and metrics stay finite."""
     from cartpoleplusplus_tpu.agents import LRPG, LRPGConfig, NAF, NAFConfig
     from cartpoleplusplus_tpu.physics.params import continuous_params
@@ -370,7 +296,7 @@ def test_pixel_naf_and_lrpg_train(tmp_path):
                                updates_per_step=2, batch_size=32,
                                replay_capacity_per_env=16,
                                warmup_env_steps=0))
-    assert agent.replay.quantize_obs and not agent.kernel_mode
+    assert agent.replay.quantize_obs
     st = agent.init(0)
     p0 = jax.tree.map(jnp.copy, st.params)
     step = jax.jit(agent.train_step)
@@ -385,7 +311,6 @@ def test_pixel_naf_and_lrpg_train(tmp_path):
     denv = CartPole3D(CartPoleParams(), num_envs=16, obs_mode="pixels",
                       render_config=rc)
     lagent = LRPG(denv, LRPGConfig(hidden=(32, 32), rollout_steps=4))
-    assert not lagent.kernel_mode
     lst = lagent.init(0)
     lp0 = jax.tree.map(jnp.copy, lst.params)
     lstep = jax.jit(lagent.train_step)
@@ -396,35 +321,3 @@ def test_pixel_naf_and_lrpg_train(tmp_path):
                for a, b in zip(jax.tree.leaves(lp0),
                                jax.tree.leaves(lst.params))), \
         "pixel-LRPG params did not move"
-
-
-def test_render_cull_matches_full_shade(monkeypatch):
-    """Row-band culling (round 5 — ops/render_kernel.py::_row_band):
-    the culled kernel must match the full shade to one-ulp on
-    ADVERSARIAL poses (extreme positions and tilts to the termination
-    limit and beyond). A conservative-bound bug would surface as O(0.1)
-    body-vs-background differences, not rounding noise."""
-    import cartpoleplusplus_tpu.ops.render_kernel as rk
-    from cartpoleplusplus_tpu.physics import CartPoleParams as _P
-
-    p = _P()
-    rng = np.random.RandomState(1)
-    b = 24
-    pos = np.stack([rng.uniform(-2.2, 2.2, b), rng.uniform(-2.2, 2.2, b),
-                    np.full(b, 0.0978)], -1).astype(np.float32)
-    s = rng.uniform(-0.99, 0.99, (b, 2)).astype(np.float32)
-    nrm = np.sqrt((s ** 2).sum(-1, keepdims=True))
-    s = np.where(nrm > 0.995, s * 0.995 / nrm, s)
-    phys = rest_state(p, batch_shape=(b,))
-    phys = phys._replace(pos=jnp.asarray(pos), s=jnp.asarray(s))
-    cfg = RenderConfig(width=48, height=48, grayscale=True)
-    assert len(rk._pick_chunks(48 * 48)) > 1  # culling actually active
-    monkeypatch.setenv("CARTPOLE_RENDER_CULL", "1")
-    culled = np.asarray(jax.jit(
-        rk.pallas_render_all(p, cfg, b, interpret=True))(phys))
-    monkeypatch.setenv("CARTPOLE_RENDER_CULL", "0")
-    full = np.asarray(jax.jit(
-        rk.pallas_render_all(p, cfg, b, interpret=True))(phys))
-    np.testing.assert_allclose(culled, full, atol=1e-6)
-    # The scene is non-trivial (bodies visible somewhere).
-    assert np.abs(np.diff(full, axis=0)).max() > 0.05
